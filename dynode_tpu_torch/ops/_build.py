@@ -1,0 +1,174 @@
+"""Build the CUDA C++ kernels with nvcc and load them with ctypes.
+
+At first use, :func:`load_library` compiles every ``dynode_tpu_torch/csrc/*.cu``
+into one shared library with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -I <generated include dir> -o <lib> csrc/*.cu
+
+and loads it with ``ctypes``. The library goes into
+``build/dynode_tpu_torch/<hash>/`` at the root of the checkout, keyed on a
+hash of the sources, the generated header and the flags, so an edited
+source rebuilds and an unchanged one is loaded as it is. No source includes
+PyTorch's headers, which keeps a build to seconds.
+
+The one generated header, ``dynode_tableaus.cuh``, holds the Tsit5 tableau
+written out from :mod:`dynode_tpu_torch.ode.solvers`, so the kernel's
+coefficients are the Python floats of the tableau, never retyped.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+from ..ode.solvers import Tsit5
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+SRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_ROOT = PACKAGE_DIR.parent / "build" / "dynode_tpu_torch"
+LIB_NAME = "libdynode_kernels.so"
+HEADER_NAME = "dynode_tableaus.cuh"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # print registers and spills of every kernel into the build log
+    "-Xptxas", "-v",
+)
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``, else PATH."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _c_matrix(rows, n) -> str:
+    """A square C initializer of doubles, ``rows`` zero-padded to ``n x n``."""
+    lines = []
+    for row in rows:
+        vals = [repr(float(v)) for v in row] + ["0.0"] * (n - len(row))
+        lines.append("    {" + ", ".join(vals) + "},")
+    return "\n".join(lines)
+
+
+def tableau_header() -> str:
+    """Text of the generated header: the Tsit5 stages of the constant step.
+
+    Coefficients are written with ``repr`` (exact round trip of the Python
+    float) and narrowed with ``static_cast<float>`` in the kernel, the same
+    rounding the JAX kernels apply to a Python-float coefficient.
+    """
+    n = 6  # stages that reach the constant-step update (b[6] == 0)
+    a_rows = [()] + [Tsit5.a[s - 1] for s in range(1, n)]
+    b = ", ".join(repr(float(v)) for v in Tsit5.b[:n])
+    return f"""// generated by dynode_tpu_torch/ops/_build.py from ode/solvers.py
+#pragma once
+
+namespace dynode {{
+
+constexpr int kTsit5Stages = {n};
+
+// a(s, j): weight of stage j in the input of stage s (row 0 is empty)
+__host__ __device__ constexpr double tsit5_a(int s, int j) {{
+  constexpr double a[{n}][{n}] = {{
+{_c_matrix(a_rows, n)}
+  }};
+  return a[s][j];
+}}
+
+__host__ __device__ constexpr double tsit5_b(int j) {{
+  constexpr double b[{n}] = {{{b}}};
+  return b[j];
+}}
+
+}}  // namespace dynode
+"""
+
+
+def sources() -> list[Path]:
+    """Every CUDA source of the package, in a stable order."""
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def build_key() -> str:
+    """Hash of the sources, the generated header and the flags."""
+    h = hashlib.sha256()
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(tableau_header().encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def nvcc_command(nvcc: str, out: Path, include_dir: Path) -> list[str]:
+    """The nvcc command line that builds ``out`` from ``csrc/*.cu``."""
+    cu = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
+    return [
+        nvcc, *NVCC_FLAGS, "-I", str(include_dir), "-I", str(SRC_DIR),
+        "-o", str(out), *cu,
+    ]
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernels' shared library."""
+    build_dir = BUILD_ROOT / build_key()
+    lib_path = build_dir / LIB_NAME
+    if not lib_path.is_file():
+        include_dir = build_dir / "include"
+        include_dir.mkdir(parents=True, exist_ok=True)
+        (include_dir / HEADER_NAME).write_text(tableau_header())
+        tmp = build_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+        cmd = nvcc_command(find_nvcc(), tmp, include_dir)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        (build_dir / "nvcc.log").write_text(
+            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or none
+    return _declare(ctypes.CDLL(str(lib_path)))
+
+
+def build_log() -> str:
+    """The nvcc output (ptxas registers and spills) of the loaded build."""
+    return (BUILD_ROOT / build_key() / "nvcc.log").read_text()
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument and return types of every C entry point."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dynode_multistrain_tsit5.argtypes = [
+        i, i,  # n_age, n_strain
+        p, p, p, p,  # y0, params, contact, out
+        i, f, i, i,  # batch, dt, n_steps, save_stride
+        p,  # stream
+    ]
+    lib.dynode_multistrain_tsit5.restype = i
+    return lib
+
+
+__all__ = [
+    "NVCC_FLAGS",
+    "build_key",
+    "build_log",
+    "find_nvcc",
+    "load_library",
+    "nvcc_command",
+    "tableau_header",
+]
