@@ -4,17 +4,18 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one CUDA card of compute
-capability 9.0. It builds both kernels of the scenario-ensemble path from
-the sources in the checkout (nvcc into ``build/dynode_tpu_torch/``, Triton's
-JIT), then:
+capability 9.0. It builds the four kernels of the scenario-ensemble path
+from the sources in the checkout (nvcc into ``build/dynode_tpu_torch/``, one
+compile per CUDA source, all started together; Triton's JIT), then:
 
 1. checks the card and prints ``nvidia-smi``'s name and power limit;
-2. holds each kernel against its plain PyTorch version on the card
-   (4,096 members, 200 days, dt = 0.5), and at 4,095 members, which is a
-   multiple of neither kernel's block, so each runs its masked last block;
+2. holds the two constant-step kernels against their plain PyTorch versions
+   on the card (4,096 members, 200 days, dt = 0.5), and at 4,095 members,
+   which is a multiple of neither kernel's block, so each runs its masked
+   last block;
 3. holds the CUDA kernel against an anchor independent of both versions,
    ``tests/golden/trajectories.npz`` (float64, adaptive);
-4. drives the main path at full size -- the scenario ensemble of
+4. drives their main path at full size -- the scenario ensemble of
    ``examples/ensemble_scenarios.py`` at B = 9,984 through the CUDA kernel,
    and the generic kernel on the same model's rows-RHS at B = 655,360 with
    bf16 observable-only saves -- and checks finiteness, mass conservation
@@ -22,7 +23,23 @@ JIT), then:
 5. times each entry point and its plain version at the main path's shapes
    (host clock, median of 3 after a warm-up), and each kernel alone with
    CUDA events, and holds the main path's results from phase 4 against the
-   plain version's at those shapes.
+   plain version's at those shapes;
+6. holds the adaptive kernel against its plain version at the same block
+   width (bosh3 and tsit5; multi-strain at 4,096 and 4,095 members, SIR at
+   4,096; c rows as bf16), counting the blocks whose accept/reject
+   statistics differ; checks its attempt budget (NaN slots equal the
+   exhausted intervals) and its accuracy against the constant-step kernel
+   at dt = 0.05;
+7. holds the 2-D multi-strain kernel against its plain version and against
+   the row kernel, at (2, 3) and (3, 2), 4,096 and 4,095 members;
+8. drives the main path of those two -- the adaptive kernel at B = 163,840
+   (all rows, bf16) and B = 655,360 (c rows, bf16), the 2-D kernel at
+   B = 9,984 -- and checks finiteness, zero exhausted intervals, padding,
+   mass conservation and that every kernel launched;
+9. times them as phase 5 does and holds their main path against the plain
+   versions; then prints each kernel's work, counted from this run's
+   inputs (and, for the adaptive kernel, its statistics), and its bound on
+   the card.
 
 The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -53,6 +70,64 @@ TOL_F32 = 1e-5  # max |kernel - plain| / max |plain|, float32 saves
 TOL_BF16 = 1e-2  # the same with bf16 saves (one bf16 ulp is 2**-8)
 TOL_GOLDEN = 1e-3  # c rows vs the float64 adaptive golden trajectory
 TOL_MASS = 1e-4  # per-age s + sum e + sum i + sum r, relative to t = 0
+MID = 163840  # the adaptive kernel's all-rows width (bench stage 3)
+D2 = 40  # rows of the aligned 2-D layout at (A, K) = (2, 3) and (3, 2)
+RTOL, ATOL = 1e-4, 1e-6  # the adaptive solve's tolerances on the main path
+ADAPTIVE_STAGES = 4  # bosh3: 3 RHS evaluations per attempt (FSAL), 1 more per block
+MIN_SAME = 0.99  # share of adaptive blocks whose stats must equal the plain version's
+TOL_ADAPTIVE_ALL = 1e-3  # adaptive kernel vs plain over all blocks (a decision may flip)
+TOL_ACCURACY = 5e-3  # adaptive vs dt = 0.05 constant step: max |d| / (1e-6 + |ref|)
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 without tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+
+
+def _nonzero(row) -> int:
+    return sum(1 for v in row if v != 0.0)
+
+
+def rhs_flops(n_age: int, n_strain: int) -> int:
+    """Float operations of one multi-strain rows-RHS evaluation per member
+    (``ops/multistrain.py::_rhs_rows``): population sums, reciprocals, then
+    per (age, strain) the contact mixing and the ten flux operations."""
+    ak = n_age * n_strain
+    return 3 * ak + n_age + ak * (10 + 3 * n_age)
+
+
+def rhs_flops_2d(n_age: int, n_strain: int) -> int:
+    """The same for ``_rhs_2d`` on the live rows of the aligned layout."""
+    ak = n_age * n_strain
+    return (2 * ak + ak + n_age + ak + ak * (2 * n_age - 1) + 2 * ak + 3 * ak + ak
+            + n_age * (n_strain - 1) + 3 * ak)
+
+
+def step_flops(table, rhs: int, n_rows: int) -> int:
+    """One constant RK step per member: the RHS evaluations and, per row,
+    the stage combinations ``y + dt * sum_j a_j k_j`` (zeros skipped)."""
+    a, b, _, n_stages = table
+    per_row = sum(2 * _nonzero(a[s - 1][:s]) + 2 for s in range(1, n_stages))
+    return n_stages * rhs + n_rows * (per_row + 2 * _nonzero(b[:n_stages]) + 2)
+
+
+def step_flops_2d(table, n_age: int, n_strain: int) -> int:
+    """One ``_tsit5_step_2d`` per member: ``ys + (dt * a_j) * k_j`` per term."""
+    a, b, _, n_stages = table
+    per_row = sum(2 * _nonzero(a[s - 1][:s]) for s in range(1, n_stages)) + 2 * _nonzero(b[:n_stages])
+    return n_stages * rhs_flops_2d(n_age, n_strain) + (n_age + 4 * n_age * n_strain) * per_row
+
+
+def adaptive_flops(stats, batch: int, block_b: int, table, rhs: int, n_rows: int) -> int:
+    """Operations of an adaptive run, counted from its per-block attempts:
+    per member and attempt, the RHS evaluations after the FSAL stage, the
+    stage, solution and error combinations and the error norm; plus one RHS
+    evaluation per member for the first FSAL stage."""
+    a, b, e, _, n_stages, _ = table
+    combos = sum(2 * _nonzero(a[s - 1][:s]) + 2 for s in range(1, n_stages - 1))
+    combos += 2 * _nonzero(b[:n_stages - 1]) + 2 + 2 * _nonzero(e[:n_stages]) + 1
+    per_attempt = (n_stages - 1) * rhs + n_rows * (combos + 8) + 2
+    attempts = (stats["n_accepted"] + stats["n_rejected"]).long().cpu()
+    members = [block_b] * (len(attempts) - 1) + [batch - block_b * (len(attempts) - 1)]
+    member_attempts = sum(int(n) * m for n, m in zip(attempts, members))
+    return member_attempts * per_attempt + batch * rhs
 
 
 class SmokeFailure(RuntimeError):
@@ -84,6 +159,7 @@ def truncated_normal(rng, n, loc=1.0, scale=0.15, low=0.6, high=1.6) -> np.ndarr
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -93,6 +169,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from dynode_tpu_torch import _device
     from dynode_tpu_torch.models import multistrain as model
+    from dynode_tpu_torch.ode.solvers import ADAPTIVE_METHODS, METHODS
     from dynode_tpu_torch.ops import _build
     from dynode_tpu_torch.ops import generic as gen
     from dynode_tpu_torch.ops import generic_triton as gtri
@@ -113,8 +190,12 @@ def main() -> int:
     _build.load_library()
     print(f"build: nvcc {time.perf_counter() - t:.1f} s (0 when cached)")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+
+    # the constructors put their tensors on the card when given no device
+    on_card = [model.multistrain_default_params().beta, *model.multistrain_initial_state()]
+    check(all(x.device.type == dev.type for x in on_card), "a constructor left the card")
 
     # ---- inputs ------------------------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -145,7 +226,17 @@ def main() -> int:
         return [-inf, inf - rec, rec]
 
     rhs_sir = gen.RowsRHS(sir_torch, sir_triton)
-    errors = {"multistrain_tsit5": [], "rk_solve": []}
+
+    def solve_2d_plain(args, kw):
+        """The plain version of ensemble_solve_tsit5_2d on the same inputs."""
+        y, beta_, sigma, gamma, omega, contact_ = args
+        b, na, nk = kw["batch"], kw.get("n_age", A), kw.get("n_strain", K)
+        return ms._solve_2d_reference(
+            ms.pack_state_2d(y, b, na, nk), ms.pack_rates_2d(beta_, sigma, gamma, omega, b, na, nk),
+            duration=kw["duration"], dt=kw["dt"], save_every=1.0,
+            contact_tuple=ms._contact_tuple(contact_), n_age=na, n_strain=nk)
+    errors = {"multistrain_tsit5": [], "rk_solve": [], "rk_solve_adaptive": [],
+              "multistrain_tsit5_2d": []}
 
     def report(kernel, what, got, want, tol):
         abs_err, rel = rel_err(got, want)
@@ -340,20 +431,254 @@ def main() -> int:
               f"kernel alone {device_ms[name]:.3f} ms (CUDA events), "
               f"plain {p_ms_:.1f} ms ({b / p_ms_ * 1e3:,.0f} traj/s) [{smi}]")
 
+    # ---- 6. the adaptive kernel against its plain version --------------------
+    print(f"phase 6: adaptive kernel vs plain, {DAYS:.0f} days, rtol {RTOL:g}, atol {ATOL:g}, "
+          f"block_b {gen.ADAPTIVE_BLOCK} on both sides")
+    adaptive_kw = dict(duration=DAYS, rtol=RTOL, atol=ATOL)
+
+    def adaptive_pair(rhs, y, p, **kw):
+        """(kernel saves, kernel stats, plain full f32 saves, plain stats)"""
+        got, got_stats = gen.ensemble_solve_kernel_adaptive(rhs, y, p, **adaptive_kw, **kw)
+        kw = {k: v for k, v in kw.items() if k not in ("save_rows", "save_dtype", "padded_rows")}
+        want, want_stats = gen.ensemble_solve_kernel_adaptive_reference(
+            rhs, y, p, block_b=gen.ADAPTIVE_BLOCK, **adaptive_kw, **kw)
+        return got, got_stats, want, want_stats
+
+    def report_adaptive(what, got, got_stats, want, want_stats, tol_same, tol_all=TOL_ADAPTIVE_ALL):
+        """Gate the kernel per block: blocks whose statistics equal the plain
+        version's within tol_same, all blocks within tol_all, and at least
+        MIN_SAME of the blocks with equal statistics."""
+        same = torch.ones_like(got_stats["n_accepted"], dtype=torch.bool)
+        for key in got_stats:
+            same &= got_stats[key] == want_stats[key]
+        n = got.shape[-1]
+        block_of = torch.arange(n, device=dev) // gen.ADAPTIVE_BLOCK
+        scale = float(want.float().abs().max())
+        member_abs = (got.float() - want.float()).abs().amax(dim=(0, 1))
+        block_abs = torch.zeros(same.shape[0], device=dev).scatter_reduce_(0, block_of, member_abs, "amax")
+        rel_same = float(block_abs[same].max()) / scale if bool(same.any()) else float("nan")
+        rel_all = float(block_abs.max()) / scale
+        frac = float(same.float().mean())
+        attempts = int((got_stats["n_accepted"] + got_stats["n_rejected"]).sum())
+        print(f"  rk_solve_adaptive {what}: {int((~same).sum())} of {same.numel()} blocks with other "
+              f"stats; max rel err {rel_same:.3e} over equal-stats blocks (tol {tol_same:.0e}), "
+              f"{rel_all:.3e} over all (tol {tol_all:.0e}); {attempts} attempts, "
+              f"{int(got_stats['exhausted_intervals'].sum())} exhausted")
+        check(frac >= MIN_SAME, f"rk_solve_adaptive {what}: only {frac:.3f} of blocks match")
+        check(rel_same <= tol_same, f"rk_solve_adaptive {what}: rel err {rel_same:.3e} > {tol_same:.0e}")
+        check(rel_all <= tol_all, f"rk_solve_adaptive {what}: rel err {rel_all:.3e} > {tol_all:.0e}")
+        if tol_same == TOL_F32:
+            errors["rk_solve_adaptive"].append(float(block_abs[same].max()))
+
+    for method in ("bosh3", "tsit5"):
+        cases = (("multistrain", rhs_ms, y_ms, p_ms), ("multistrain", rhs_ms, y_rag, p_rag),
+                 ("sir", rhs_sir, y_sir, p_sir))
+        for name, rhs, y, p in cases:
+            got, got_stats, want, want_stats = adaptive_pair(rhs, y, p, method=method)
+            check(int(got_stats["exhausted_intervals"].sum()) == 0, f"{method} {name}: budget exhausted")
+            report_adaptive(f"{method} {name} B={y.shape[1]}", got, got_stats, want, want_stats, TOL_F32)
+            if y is y_ms:
+                print(f"    Triton's compile of the {method} kernel on the multistrain rows-RHS: "
+                      f"n_regs {gtri.kernel_info['n_regs']}, n_spills {gtri.kernel_info['n_spills']}")
+    got, got_stats, want, want_stats = adaptive_pair(rhs_ms, y_ms, p_ms, method="bosh3", **obs_kw)
+    check(tuple(got.shape) == (int(DAYS) + 1, 8, SLICE), f"adaptive obs saves shape {tuple(got.shape)}")
+    check(not got[:, len(c_rows):].any(), "padding rows of the adaptive obs saves are not zero")
+    want = gen.select_saves(want, c_rows, torch.bfloat16, True)
+    report_adaptive("bosh3 c rows, bf16, padded", got[:, :len(c_rows)], got_stats,
+                    want[:, :len(c_rows)], want_stats, TOL_BF16, TOL_BF16)
+
+    # the attempt budget: rtol 1e-10 cannot be met in float32 in 2 attempts
+    got, got_stats = gen.ensemble_solve_kernel_adaptive(
+        rhs_ms, y_ms, p_ms, duration=DAYS, rtol=1e-10, atol=1e-14, steps_per_save=2)
+    nb = got_stats["n_accepted"].shape[0]
+    nan_slot = torch.isnan(got).all(dim=1).reshape(got.shape[0], nb, gen.ADAPTIVE_BLOCK).all(dim=2)
+    exhausted = got_stats["exhausted_intervals"]
+    print(f"  budget (rtol 1e-10, atol 1e-14, 2 attempts): all-NaN slots per block "
+          f"{int(nan_slot.sum(0).min())}..{int(nan_slot.sum(0).max())}, exhausted_intervals "
+          f"{int(exhausted.min())}..{int(exhausted.max())}, slot 0 NaN in {int(nan_slot[0].sum())} blocks")
+    check(bool((nan_slot.sum(0) == exhausted).all()), "NaN slots differ from exhausted_intervals")
+    check(bool((exhausted > 0).all()), "a block met rtol 1e-10 in float32")
+    check(not bool(nan_slot[0].any()), "slot 0 is NaN")
+
+    # accuracy against an independent solve: the constant-step kernel at dt = 0.05
+    m = 2048
+    beta_acc = scaled_beta(base, truncated_normal(rng, m))
+    y_s = ms.pack_state(y0, m)
+    p_s = ms.pack_params(beta_acc, base.sigma, base.gamma, base.omega, m)
+    ref = gen.ensemble_solve_kernel(rhs_ms, y_s, p_s, duration=DAYS, dt=0.05)
+    got, _ = gen.ensemble_solve_kernel_adaptive(rhs_ms, y_s, p_s, **adaptive_kw)
+    acc_rel = float(((got - ref).abs() / (1e-6 + ref.abs())).max())
+    print(f"  bosh3 vs rk_solve tsit5 at dt = 0.05, B={m}: max |got - ref| / (1e-6 + |ref|) "
+          f"{acc_rel:.3e} (tol {TOL_ACCURACY:.0e})")
+    check(acc_rel < TOL_ACCURACY, f"adaptive accuracy gate: {acc_rel:.3e}")
+
+    # ---- 7. the 2-D kernel against its plain version and the row kernel -------
+    print(f"phase 7: 2-D kernel vs plain and vs the row kernel, {DAYS:.0f} days, dt={DT}")
+    for (na, nk), (r0s, tinf, tlat, twane, demo) in shapes.items():
+        p = model.multistrain_default_params(r0s, tinf, tlat, twane, n_age=na, device=dev)
+        y = model.multistrain_initial_state(r0s, demo, device=dev)
+        pad = sorted(set(range(D2)) - set(ms._live_rows_2d(na, nk)))
+        for b in (SLICE, RAGGED):
+            args = (y, scaled_beta(p, scales_slice[:b]), p.sigma, p.gamma, p.omega, p.contact_matrix)
+            kw = dict(batch=b, duration=DAYS, dt=DT, n_age=na, n_strain=nk)
+            got = ms.ensemble_solve_tsit5_2d(*args, **kw)
+            want = solve_2d_plain(args, kw)
+            check(tuple(got.shape) == (int(DAYS) + 1, D2, b), f"2-D saves shape {tuple(got.shape)}")
+            check(not got[:, pad].any(), f"2-D padding rows not zero at (A,K)=({na},{nk}) B={b}")
+            report("multistrain_tsit5_2d", f"(A,K)=({na},{nk}) B={b}", got, want, TOL_F32)
+            rows = ms.ensemble_solve_tsit5(*args, **kw)
+            two_d = torch.cat([x.reshape(x.shape[0], b, -1) for x in ms.unpack_saves_2d(got, na, nk)], -1)
+            row_k = torch.cat([x.reshape(x.shape[0], b, -1) for x in ms.unpack_saves(rows, na, nk)], -1)
+            _, rel = rel_err(two_d, row_k)
+            print(f"  multistrain_tsit5_2d vs multistrain_tsit5 (A,K)=({na},{nk}) B={b}: "
+                  f"max rel err {rel:.3e} (tol {TOL_F32:.0e})")
+            check(rel <= TOL_F32, f"the 2-D and row kernels disagree: rel {rel:.3e}")
+
+    # ---- 8. the main path of the new kernels ----------------------------------
+    print(f"phase 8: main path, adaptive kernel at B={MID} (all rows, bf16) and B={WIDE} "
+          f"(c rows, bf16, padded), 2-D kernel at B={ENSEMBLE}")
+    beta_mid = scaled_beta(base, truncated_normal(rng, MID))
+    y_mid = ms.pack_state(y0, MID)
+    p_mid = ms.pack_params(beta_mid, base.sigma, base.gamma, base.omega, MID)
+    bf16_kw = dict(save_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+
+    gtri.launch_rk_solve_adaptive.launches = 0
+    ms.launch_multistrain_tsit5_2d.launches = 0
+    mid, mid_stats = gen.ensemble_solve_kernel_adaptive(rhs_ms, y_mid, p_mid, **adaptive_kw, **bf16_kw)
+    obs_ad, obs_stats = gen.ensemble_solve_kernel_adaptive(rhs_ms, y_wide, p_wide, **adaptive_kw, **obs_kw)
+    saves_2d = ms.ensemble_solve_tsit5_2d(y0, beta, base.sigma, base.gamma, base.omega,
+                                          base.contact_matrix, batch=ENSEMBLE, duration=DAYS, dt=DT)
+    torch.cuda.synchronize()
+    launches.update(rk_solve_adaptive=gtri.launch_rk_solve_adaptive.launches,
+                    multistrain_tsit5_2d=ms.launch_multistrain_tsit5_2d.launches)
+    print(f"  launches in the main path of the new kernels: "
+          f"{ {k: launches[k] for k in ('rk_solve_adaptive', 'multistrain_tsit5_2d')} }")
+    check(launches["rk_solve_adaptive"] > 0 and launches["multistrain_tsit5_2d"] > 0,
+          f"a kernel of the path did not launch: {launches}")
+
+    for what, out, stats, rows in ((f"B={MID} all rows", mid, mid_stats, D),
+                                   (f"B={WIDE} c rows", obs_ad, obs_stats, 8)):
+        n_bad = int(stats["exhausted_intervals"].sum())
+        attempts = int((stats["n_accepted"] + stats["n_rejected"]).sum())
+        n_blocks = stats["n_accepted"].shape[0]
+        print(f"  adaptive {what}: {tuple(out.shape)} bf16 saves ({out.numel() * 2 / 1e9:.2f} GB); "
+              f"exhausted_intervals {n_bad}; {attempts} attempts in {n_blocks} blocks, "
+              f"{(ADAPTIVE_STAGES - 1) * attempts + n_blocks} RHS evaluations")
+        check(tuple(out.shape) == (int(DAYS) + 1, rows, out.shape[-1]), f"adaptive saves shape {tuple(out.shape)}")
+        check(n_bad == 0, f"adaptive {what}: {n_bad} exhausted intervals")
+        check(bool(torch.isfinite(out).all()), f"adaptive {what}: non-finite saves")
+    check(not obs_ad[:, len(c_rows):].any(), f"adaptive padding rows not zero at B={WIDE}")
+    mid_attempts = int((mid_stats["n_accepted"] + mid_stats["n_rejected"]).sum())
+    mid_blocks = mid_stats["n_accepted"].shape[0]
+    # the all-rows bf16 variant is a compile of its own: hold it against the plain version
+    want_mid, want_mid_stats = gen.ensemble_solve_kernel_adaptive_reference(
+        rhs_ms, y_mid, p_mid, block_b=gen.ADAPTIVE_BLOCK, **adaptive_kw)
+    report_adaptive(f"main path B={MID}, all rows, bf16", mid, mid_stats,
+                    want_mid.to(torch.bfloat16), want_mid_stats, TOL_BF16, TOL_BF16)
+    del mid, want_mid
+
+    check(tuple(saves_2d.shape) == (int(DAYS) + 1, D2, ENSEMBLE), f"2-D saves shape {tuple(saves_2d.shape)}")
+    check(bool(torch.isfinite(saves_2d).all()), f"non-finite 2-D saves at B={ENSEMBLE}")
+    s, e, i, r, c = ms.unpack_saves_2d(saves_2d)
+    mass = s + e.sum(-1) + i.sum(-1) + r.sum(-1)
+    drift = float(((mass - mass[0]).abs() / mass[0]).max())
+    print(f"  2-D B={ENSEMBLE}: {tuple(saves_2d.shape)} f32 saves finite; per-age mass drift "
+          f"{drift:.3e} (tol {TOL_MASS:.0e})")
+    check(drift <= TOL_MASS, f"mass not conserved by the 2-D kernel at B={ENSEMBLE}: {drift:.3e}")
+    del s, e, i, r, c, mass
+
+    # ---- 9. times of the new kernels, and their main path against the plain ---
+    print(f"phase 9: times, median of 3 after a warm-up, on {smi}")
+    k_ms, _ = median_ms(lambda: gen.ensemble_solve_kernel_adaptive(
+        rhs_ms, y_wide, p_wide, **adaptive_kw, **obs_kw)[0])
+    plain_stats = {}
+
+    def adaptive_plain():
+        full, plain_stats["s"] = gen.ensemble_solve_kernel_adaptive_reference(
+            rhs_ms, y_wide, p_wide, block_b=gen.ADAPTIVE_BLOCK, **adaptive_kw)
+        return gen.select_saves(full, c_rows, torch.bfloat16, True)
+
+    p_ms_, plain = median_ms(adaptive_plain)
+    report_adaptive(f"main path B={WIDE}, c rows, bf16, padded", obs_ad[:, :len(c_rows)], obs_stats,
+                    plain[:, :len(c_rows)], plain_stats["s"], TOL_BF16, TOL_BF16)
+    times["rk_solve_adaptive"] = (k_ms, p_ms_, WIDE)
+    del plain
+    mid_ms, _ = median_ms(lambda: gen.ensemble_solve_kernel_adaptive(
+        rhs_ms, y_mid, p_mid, **adaptive_kw, **bf16_kw)[0])
+    ms2_args = (y0, beta, base.sigma, base.gamma, base.omega, base.contact_matrix)
+    ms2_kw = dict(batch=ENSEMBLE, duration=DAYS, dt=DT)
+    k_ms, _ = median_ms(lambda: ms.ensemble_solve_tsit5_2d(*ms2_args, **ms2_kw))
+    p_ms_, plain = median_ms(lambda: solve_2d_plain(ms2_args, ms2_kw))
+    report("multistrain_tsit5_2d", f"main path B={ENSEMBLE}", saves_2d, plain, TOL_F32)
+    times["multistrain_tsit5_2d"] = (k_ms, p_ms_, ENSEMBLE)
+    del plain
+    y_2d = ms.pack_state_2d(y0, ENSEMBLE)
+    r_2d = ms.pack_rates_2d(beta, base.sigma, base.gamma, base.omega, ENSEMBLE)
+    grid_kw = dict(n_saves=int(DAYS) + 1, save_every=1.0, t0=0.0)
+    device_ms["rk_solve_adaptive"] = event_ms(lambda: gtri.launch_rk_solve_adaptive(
+        rhs_ms, y_wide, p_wide, rtol=RTOL, atol=ATOL, dt0=1.0 / 8, steps_per_save=8, method="bosh3",
+        block_b=gen.ADAPTIVE_BLOCK, save_rows=c_rows, save_dtype=torch.bfloat16, padded_rows=True,
+        **grid_kw))
+    device_ms["multistrain_tsit5_2d"] = event_ms(lambda: ms.launch_multistrain_tsit5_2d(
+        y_2d, r_2d, contact, dt=DT, n_steps=n_steps, save_stride=stride, n_age=A, n_strain=K))
+    for name in ("rk_solve_adaptive", "multistrain_tsit5_2d"):
+        k_ms, p_ms_, b = times[name]
+        print(f"  {name} B={b}: entry point {k_ms:.3f} ms ({b / k_ms * 1e3:,.0f} traj/s), "
+              f"kernel alone {device_ms[name]:.3f} ms (CUDA events), "
+              f"plain {p_ms_:.1f} ms ({b / p_ms_ * 1e3:,.0f} traj/s) [{smi}]")
+    print(f"  rk_solve_adaptive B={MID}, all rows bf16: entry point {mid_ms:.3f} ms "
+          f"({MID / mid_ms * 1e3:,.0f} traj/s); {mid_attempts} attempts in {mid_blocks} blocks [{smi}]")
+    print(f"  B={ENSEMBLE}, kernel alone: multistrain_tsit5_2d {device_ms['multistrain_tsit5_2d']:.3f} ms "
+          f"vs multistrain_tsit5 {device_ms['multistrain_tsit5']:.3f} ms (CUDA events) [{smi}]")
+
+    # ---- the kernels' line: counts of this run's work and the card's bound ---
+    obs_attempts = int((obs_stats["n_accepted"] + obs_stats["n_rejected"]).sum())
+    obs_bytes = 8 * 2  # a member's save slot: 6 c rows + 2 zero rows, bf16
+    work = {
+        "multistrain_tsit5": (
+            n_steps * ENSEMBLE * step_flops(METHODS["tsit5"], rhs_flops(A, K), D),
+            4 * ENSEMBLE * (D + 4 * K) + 4 * A * A + 4 * (int(DAYS) + 1) * D * ENSEMBLE),
+        "rk_solve": (
+            n_steps * WIDE * step_flops(METHODS["tsit5"], rhs_flops(A, K), D),
+            4 * WIDE * (D + 4 * K) + (int(DAYS) + 1) * obs_bytes * WIDE),
+        "rk_solve_adaptive": (
+            adaptive_flops(obs_stats, WIDE, gen.ADAPTIVE_BLOCK, ADAPTIVE_METHODS["bosh3"],
+                           rhs_flops(A, K), D),
+            4 * WIDE * (D + 4 * K) + 4 * (int(DAYS) + 1) + (int(DAYS) + 1) * obs_bytes * WIDE
+            + 3 * 4 * obs_stats["n_accepted"].shape[0]),
+        "multistrain_tsit5_2d": (
+            n_steps * ENSEMBLE * step_flops_2d(METHODS["tsit5"], A, K),
+            4 * ENSEMBLE * (D2 + 32) + 4 * A * A + 4 * (int(DAYS) + 1) * D2 * ENSEMBLE),
+    }
+    print(f"  adaptive B={WIDE}: {obs_attempts} attempts; work counted from the stats")
     check("jax" not in sys.modules, "jax was imported")
     meta = {
         "multistrain_tsit5": ("cuda", "dynode_tpu_torch/csrc/multistrain_tsit5.cu",
                               "dynode_tpu/ops/multistrain_pallas.py:195"),
         "rk_solve": ("triton", "dynode_tpu_torch/ops/generic_triton.py",
                      "dynode_tpu/ops/generic_pallas.py:236"),
+        "rk_solve_adaptive": ("triton", "dynode_tpu_torch/ops/generic_triton.py",
+                              "dynode_tpu/ops/generic_pallas.py:516"),
+        "multistrain_tsit5_2d": ("cuda", "dynode_tpu_torch/csrc/multistrain_tsit5_2d.cu",
+                                 "dynode_tpu/ops/multistrain_pallas.py:598"),
     }
-    kernels = [
-        {"name": name, "route": route, "source": source, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": max(errors[name]),
-         "ms": times[name][0], "plain_ms": times[name][1], "batch": times[name][2],
-         "kernel_event_ms": device_ms[name]}
-        for name, (route, source, replaces) in meta.items()
-    ]
+    kernels = []
+    for name, (route, source, replaces) in meta.items():
+        flops, nbytes = work[name]
+        bound_ms, bound_by = max((flops / PEAK_F32_FLOPS * 1e3, "operations"),
+                                 (nbytes / PEAK_BYTES * 1e3, "bytes"))
+        print(f"  {name}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB -> bound {bound_ms:.4f} ms "
+              f"by {bound_by}; kernel {device_ms[name]:.3f} ms ({bound_ms / device_ms[name]:.1%} of the "
+              f"bound) [{smi}]")
+        kernels.append({
+            "name": name, "route": route, "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": max(errors[name]),
+            "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "batch": times[name][2],
+            "kernel_event_ms": device_ms[name],
+        })
+    print(f"chip_smoke: {time.perf_counter() - t_start:.0f} s from start to the result")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

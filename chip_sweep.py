@@ -1,0 +1,133 @@
+#!/usr/bin/env python3
+"""Block-width sweep of the port's adaptive kernel, and the two multi-strain
+kernels in turns, on one H100.
+
+    python3 chip_sweep.py
+
+Run from the root of a checkout on a machine with one CUDA card of compute
+capability 9.0. It solves the two adaptive main paths of ``chip_smoke.py`` --
+the multi-strain rows-RHS over 200 days, bosh3 at rtol 1e-4, atol 1e-6, at
+B = 163,840 with all rows saved as bf16 and at B = 655,360 with the ``c``
+rows as bf16 padded to 8 -- once for each lockstep block width ``block_b``
+in 32, 64, 128 and 256. For each it prints the solve's time by CUDA events
+(median of 3 after a warm-up), trajectories per second, the attempts and the
+RHS evaluations counted from the statistics (``3 * attempts + n_blocks``)
+and the exhausted intervals. The block's stiffest member sets its dt, so the
+width changes the work as well as the parallelism. Then it times the row
+kernel (``csrc/multistrain_tsit5.cu``) and the 2-D kernel
+(``csrc/multistrain_tsit5_2d.cu``) at the main path's B = 9,984 in turns
+(row, 2-D, 2-D, row; five rounds; CUDA events over 5 launches each) and
+prints each one's median. It imports no JAX and exits non-zero without a
+card.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent
+WIDTHS_B = (163840, 655360)
+DAYS = 200.0
+WIDTHS = (32, 64, 128, 256)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_sweep: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from dynode_tpu_torch import _device
+    from dynode_tpu_torch.models import multistrain as model
+    from dynode_tpu_torch.ops import generic as gen
+    from dynode_tpu_torch.ops import generic_triton as gtri
+    from dynode_tpu_torch.ops import multistrain as ms
+
+    dev = _device.require_hopper("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[dev.index]
+    print(smi)
+    base = model.multistrain_default_params(device=dev)
+    y0 = model.multistrain_initial_state(device=dev)
+    rhs = ms.multistrain_rows_rhs(base.contact_matrix)
+    n_rows = ms.D_ROWS
+    c_rows = tuple(range(n_rows - ms.A_DIM * ms.K_DIM, n_rows))
+
+    def run(batch: int, block_b: int) -> None:
+        scales = np.clip(np.random.default_rng(0).normal(1.0, 0.15, batch), 0.6, 1.6)
+        beta = base.beta[None, :] * torch.as_tensor(scales, dtype=torch.float32, device=dev)[:, None]
+        y = ms.pack_state(y0, batch)
+        p = ms.pack_params(beta, base.sigma, base.gamma, base.omega, batch)
+        kw = dict(duration=DAYS, rtol=1e-4, atol=1e-6, save_dtype=torch.bfloat16)
+        if batch > 163840:
+            kw.update(save_rows=c_rows, padded_rows=True)
+        solve = lambda: gen.ensemble_solve_kernel_adaptive(rhs, y, p, block_b=block_b, **kw)
+        _, stats = solve()  # compile and warm up
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            solve()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        t = statistics.median(times)
+        attempts = int((stats["n_accepted"] + stats["n_rejected"]).sum())
+        n_blocks = stats["n_accepted"].shape[0]
+        print(f"B={batch} {'c' if 'save_rows' in kw else 'all'} rows block_b {block_b:4d}: "
+              f"{t:.3f} ms ({batch / t * 1e3:,.0f} traj/s), {attempts} attempts in {n_blocks} blocks, "
+              f"{3 * attempts + n_blocks} RHS evaluations, rejected "
+              f"{int(stats['n_rejected'].sum())}, exhausted {int(stats['exhausted_intervals'].sum())}, "
+              f"n_regs {gtri.kernel_info['n_regs']}, n_spills {gtri.kernel_info['n_spills']} [{smi}]")
+
+    for batch in WIDTHS_B:
+        for block_b in WIDTHS:
+            run(batch, block_b)
+
+    n = 9984
+    scales = np.clip(np.random.default_rng(1).normal(1.0, 0.15, n), 0.6, 1.6)
+    beta = base.beta[None, :] * torch.as_tensor(scales, dtype=torch.float32, device=dev)[:, None]
+    contact = tuple(tuple(row) for row in base.contact_matrix.tolist())
+    grid = dict(dt=0.5, n_steps=int(2 * DAYS), save_stride=2, n_age=ms.A_DIM, n_strain=ms.K_DIM)
+    y_row = ms.pack_state(y0, n)
+    p_row = ms.pack_params(beta, base.sigma, base.gamma, base.omega, n)
+    y_2d = ms.pack_state_2d(y0, n)
+    p_2d = ms.pack_rates_2d(beta, base.sigma, base.gamma, base.omega, n)
+    kernels = {
+        "row": lambda: ms.launch_multistrain_tsit5(y_row, p_row, contact, **grid),
+        "2-D": lambda: ms.launch_multistrain_tsit5_2d(y_2d, p_2d, contact, **grid),
+    }
+
+    def event_ms(fn, reps=5) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    for fn in kernels.values():
+        fn()  # build and warm up
+    times = {name: [] for name in kernels}
+    for _ in range(5):
+        for name in ("row", "2-D", "2-D", "row"):
+            times[name].append(event_ms(kernels[name]))
+    for name, ts in times.items():
+        print(f"multi-strain {name} kernel, B={n}, {DAYS:.0f} days: median {statistics.median(ts):.3f} ms "
+              f"of {len(ts)} (min {min(ts):.3f}, max {max(ts):.3f}), in turns [{smi}]")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,11 +1,13 @@
 """DynODE-TPU ported to PyTorch and CUDA for an NVIDIA H100.
 
 A second package beside ``dynode_tpu`` (JAX, the reference), ported slice by
-slice. This slice is the constant-step multi-strain SEIRS scenario ensemble:
-the model (:mod:`.models.multistrain`), the RK tableaus (:mod:`.ode`), the
-carry-over of JAX values (:mod:`.convert`) and the two ensemble kernels with
-their plain versions (:mod:`.ops`). The package imports ``torch`` and never
-``jax``.
+slice. So far it holds the multi-strain SEIRS scenario ensemble: the model
+(:mod:`.models.multistrain`), the RK tableaus (:mod:`.ode`), the carry-over
+of JAX values (:mod:`.convert`) and the four ensemble kernels with their
+plain versions (:mod:`.ops`): constant-step and adaptive solves of any
+rows-RHS, and the multi-strain solve on the row and the aligned 2-D layout.
+Constructors put their tensors on the card unless given ``device="cpu"``.
+The package imports ``torch`` and never ``jax``.
 """
 
 from . import convert, models, ode, ops
@@ -15,7 +17,14 @@ from .models.multistrain import (
     multistrain_initial_state,
     multistrain_ode,
 )
-from .ops import ensemble_solve_kernel, ensemble_solve_tsit5, unpack_saves
+from .ops import (
+    ensemble_solve_kernel,
+    ensemble_solve_kernel_adaptive,
+    ensemble_solve_tsit5,
+    ensemble_solve_tsit5_2d,
+    unpack_saves,
+    unpack_saves_2d,
+)
 
 __all__ = [
     "convert",
@@ -27,6 +36,9 @@ __all__ = [
     "multistrain_initial_state",
     "multistrain_ode",
     "ensemble_solve_kernel",
+    "ensemble_solve_kernel_adaptive",
     "ensemble_solve_tsit5",
+    "ensemble_solve_tsit5_2d",
     "unpack_saves",
+    "unpack_saves_2d",
 ]

@@ -4,7 +4,9 @@ Every kernel entry point decides its route from the device of the tensors it
 is given: a CPU tensor takes the plain PyTorch version, a CUDA tensor takes
 the hand-written Hopper kernel. The kernels are built for ``sm_90a`` only, so
 a CUDA route on anything but a compute-capability (9, 0) card raises here.
-Nothing in the port drops a CUDA request to the CPU.
+Nothing in the port drops a CUDA request to the CPU. Constructors given no
+device put their tensors on the card (:func:`default_device`); the CPU is
+asked for with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,21 @@ def require_hopper(device: torch.device | str) -> torch.device:
             f"{torch.cuda.get_device_name(index)} has {cap}"
         )
     return torch.device("cuda", index)
+
+
+def default_device() -> torch.device:
+    """The device a constructor uses when the caller names none: the current
+    CUDA device, after :func:`require_hopper`.
+
+    Raises where there is no Hopper card; it never returns the CPU, which a
+    caller asks for with ``device="cpu"``.
+    """
+    return require_hopper("cuda")
+
+
+def resolve(device: torch.device | str | None) -> torch.device:
+    """``device`` as given, or :func:`default_device` when it is None."""
+    return default_device() if device is None else torch.device(device)
 
 
 def uses_kernel(device: torch.device) -> bool:

@@ -3,7 +3,9 @@
 Both take numpy arrays (``np.asarray`` of the JAX values) and never import
 JAX: a mapping or any object with ``beta/sigma/gamma/omega/contact_matrix``
 becomes :class:`~dynode_tpu_torch.models.multistrain.MultiStrainParams`, and
-the ``(s, e, i, r, c)`` tuple becomes a tuple of tensors.
+the ``(s, e, i, r, c)`` tuple becomes a tuple of tensors. With no
+``device`` the tensors go to the card (raises where there is none); pass
+``device="cpu"`` for the CPU.
 """
 
 from __future__ import annotations
@@ -13,13 +15,14 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from . import _device
 from .models.multistrain import MultiStrainParams
 
 _PARAM_FIELDS = ("beta", "sigma", "gamma", "omega", "contact_matrix")
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
-    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=_device.resolve(device))
 
 
 def params_from_numpy(

@@ -6,7 +6,8 @@ and K strains (``c`` is cumulative incidence). The pydantic config layer is
 not ported yet: :func:`multistrain_default_params` and
 :func:`multistrain_initial_state` compute from the same defaults what
 ``multistrain_config`` -> ``multistrain_odeparams`` /
-``MultiStrainInitializer`` compute in the JAX package.
+``MultiStrainInitializer`` compute in the JAX package. Both put their
+tensors on the card unless the caller names a device (``device="cpu"``).
 
 The ``A x A`` contact contraction is written as an elementwise product and a
 sum, so it runs in full float32 on every device (no TF32 matmul path).
@@ -20,6 +21,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from .. import _device
 
 #: defaults of ``dynode_tpu.models.multistrain.multistrain_config``
 DEFAULT_R0S = (2.0, 2.5, 1.8)
@@ -63,7 +66,12 @@ def multistrain_default_params(
     device: torch.device | str | None = None,
 ) -> MultiStrainParams:
     """beta = r0 / T_inf, sigma = 1 / T_lat, gamma = 1 / T_inf,
-    omega = 1 / T_wane (computed in float64, then cast to ``dtype``)."""
+    omega = 1 / T_wane (computed in float64, then cast to ``dtype``).
+
+    With no ``device`` the tensors go to the card (raises where there is
+    none); pass ``device="cpu"`` for the CPU.
+    """
+    device = _device.resolve(device)
     r0s = np.asarray(r0s, np.float64)
     inf_p = np.asarray(infectious_periods, np.float64)
     lat_p = np.asarray(latent_periods, np.float64)
@@ -94,7 +102,9 @@ def multistrain_initial_state(
     device: torch.device | str | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """``S0 = N * 0.99 * demo``; ``I0 = N * 0.01 * demo x (r0 / sum r0)``;
-    E, R, C zero. Mirrors ``MultiStrainInitializer.get_initial_state``."""
+    E, R, C zero. Mirrors ``MultiStrainInitializer.get_initial_state``.
+    ``device`` as in :func:`multistrain_default_params`."""
+    device = _device.resolve(device)
     demo = np.asarray(age_demographics, np.float64)
     r0s = np.asarray(r0s, np.float64)
     n_age, n_strain = demo.shape[0], r0s.shape[0]

@@ -138,7 +138,15 @@ METHODS = {
     "rk4": (RK4_A, RK4_B, RK4_C, 4),
 }
 
+#: adaptive method -> (a, b, e, c, n_stages, err_order) of the embedded pair.
+#: Both are FSAL: the last stage is f(t + dt, y_new), has b == 0 and feeds
+#: only the error estimate. bosh3 is the default of the adaptive solve.
+ADAPTIVE_METHODS = {
+    "tsit5": (Tsit5.a, Tsit5.b, Tsit5.e, Tsit5.c, 7, float(Tsit5.err_order)),
+    "bosh3": (Bosh3.a, Bosh3.b, Bosh3.e, Bosh3.c, 4, float(Bosh3.err_order)),
+}
+
 __all__ = [
     "Tableau", "Euler", "Heun", "Bosh3", "Tsit5", "Dopri5",
-    "RK4_A", "RK4_B", "RK4_C", "METHODS",
+    "RK4_A", "RK4_B", "RK4_C", "METHODS", "ADAPTIVE_METHODS",
 ]

@@ -1,10 +1,12 @@
 """Build the CUDA C++ kernels with nvcc and load them with ctypes.
 
-At first use, :func:`load_library` compiles every ``dynode_tpu_torch/csrc/*.cu``
-into one shared library with a plain C interface::
+At first use, :func:`load_library` compiles each ``dynode_tpu_torch/csrc/*.cu``
+with its own nvcc, all started together, and links the objects into one
+shared library with a plain C interface::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -I <generated include dir> -o <lib> csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -c -I <generated include dir> -o <obj> csrc/<source>.cu   # one per source
+    nvcc -shared -o <lib> <objs>
 
 and loads it with ``ctypes``. The library goes into
 ``build/dynode_tpu_torch/<hash>/`` at the root of the checkout, keyed on a
@@ -25,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 from ..ode.solvers import Tsit5
@@ -37,7 +40,7 @@ HEADER_NAME = "dynode_tableaus.cuh"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # print registers and spills of every kernel into the build log
     "-Xptxas", "-v",
 )
@@ -113,13 +116,23 @@ def build_key() -> str:
     return h.hexdigest()[:16]
 
 
-def nvcc_command(nvcc: str, out: Path, include_dir: Path) -> list[str]:
-    """The nvcc command line that builds ``out`` from ``csrc/*.cu``."""
-    cu = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
-    return [
-        nvcc, *NVCC_FLAGS, "-I", str(include_dir), "-I", str(SRC_DIR),
-        "-o", str(out), *cu,
-    ]
+def nvcc_commands(nvcc: str, out: Path, include_dir: Path) -> tuple[list[list[str]], list[str]]:
+    """``(one compile command per csrc/*.cu, the link command into out)``."""
+    compiles, objs = [], []
+    for src in sorted(SRC_DIR.glob("*.cu")):
+        obj = out.parent / f"{src.stem}.o"
+        objs.append(str(obj))
+        compiles.append([nvcc, *NVCC_FLAGS, "-c", "-I", str(include_dir), "-I", str(SRC_DIR),
+                         "-o", str(obj), str(src)])
+    return compiles, [nvcc, "-shared", "-o", str(out), *objs]
+
+
+def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
+    """Run the commands together; ``(command, return code, output)`` of each."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    return [(cmd, proc.returncode, text) for cmd, proc, text in zip(cmds, procs, outputs)]
 
 
 @functools.cache
@@ -131,17 +144,19 @@ def load_library() -> ctypes.CDLL:
         include_dir = build_dir / "include"
         include_dir.mkdir(parents=True, exist_ok=True)
         (include_dir / HEADER_NAME).write_text(tableau_header())
-        tmp = build_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = nvcc_command(find_nvcc(), tmp, include_dir)
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (build_dir / "nvcc.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or none
+        # objects and the library go into a private directory, removed
+        # whether or not nvcc succeeds
+        with tempfile.TemporaryDirectory(dir=build_dir) as work:
+            tmp = Path(work) / LIB_NAME
+            compiles, link = nvcc_commands(find_nvcc(), tmp, include_dir)
+            results = _run_all(compiles)
+            if all(rc == 0 for _, rc, _ in results):
+                results += _run_all([link])
+            log = "".join(" ".join(cmd) + "\n" + text for cmd, _, text in results)
+            (build_dir / "nvcc.log").write_text(log)
+            if any(rc != 0 for _, rc, _ in results):
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or none
     return _declare(ctypes.CDLL(str(lib_path)))
 
 
@@ -160,6 +175,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p,  # stream
     ]
     lib.dynode_multistrain_tsit5.restype = i
+    lib.dynode_multistrain_tsit5_2d.argtypes = [
+        i, i,  # n_age, n_strain
+        p, p, p, p,  # y0, rates, contact, out
+        i, ctypes.c_double, i, i,  # batch, dt, n_steps, save_stride
+        p,  # stream
+    ]
+    lib.dynode_multistrain_tsit5_2d.restype = i
     return lib
 
 
@@ -169,6 +191,6 @@ __all__ = [
     "build_log",
     "find_nvcc",
     "load_library",
-    "nvcc_command",
+    "nvcc_commands",
     "tableau_header",
 ]

@@ -133,3 +133,79 @@ def test_kernels_agree_with_each_other(cuda):
         ms.pack_params(beta, params.sigma, params.gamma, params.omega, B),
         duration=DAYS, dt=0.5)
     assert _rel(b, a) <= TOL
+
+
+def _block_rel(got, want, block_b):
+    """Per block: max |got - want| / max |want| over the block's members."""
+    n = got.shape[-1]
+    member = ((got.float() - want.float()).abs().amax(dim=(0, 1)) / want.float().abs().max())
+    out = torch.zeros(-(-n // block_b), device=got.device)
+    return out.scatter_reduce_(0, torch.arange(n, device=got.device) // block_b, member, "amax")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["bosh3", "tsit5"])
+def test_adaptive_kernel_matches_plain_version(cuda, method):
+    """B = 4,095 (a ragged last block), 200 days, rtol 1e-4, atol 1e-6, the
+    same block width on both sides. FMA contraction may flip a decision with
+    the norm within rounding of 1, so: at least 99% of the blocks have the
+    plain version's statistics, and those agree to 1e-5; every block to 1e-3."""
+    n = B - 1
+    params, y0, beta = _inputs(cuda)
+    rhs = ms.multistrain_rows_rhs(params.contact_matrix)
+    y = ms.pack_state(y0, n)
+    p = ms.pack_params(beta[:n], params.sigma, params.gamma, params.omega, n)
+    kw = dict(duration=DAYS, rtol=1e-4, atol=1e-6, method=method)
+    before = gtri.launch_rk_solve_adaptive.launches
+    got, stats = gen.ensemble_solve_kernel_adaptive(rhs, y, p, **kw)
+    assert gtri.launch_rk_solve_adaptive.launches == before + 1
+    want, want_stats = gen.ensemble_solve_kernel_adaptive_reference(
+        rhs, y, p, block_b=gen.ADAPTIVE_BLOCK, **kw)
+    same = torch.ones_like(stats["n_accepted"], dtype=torch.bool)
+    for key in stats:
+        same &= stats[key] == want_stats[key]
+    rel = _block_rel(got, want, gen.ADAPTIVE_BLOCK)
+    assert int(stats["exhausted_intervals"].sum()) == 0
+    assert float(same.float().mean()) >= 0.99
+    assert float(rel[same].max()) <= TOL and float(rel.max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ms.INSTANTIATED)
+def test_2d_kernel_matches_plain_version_and_row_kernel(cuda, shape):
+    """B = 4,095 (a ragged last warp): the 2-D kernel against its plain
+    version, with zero padding rows, and against the row kernel after
+    unpacking (the same model in another expression order)."""
+    n_age, n_strain = shape
+    params, y0, beta = _inputs(cuda, n_age)
+    n = B - 1
+    args = (y0, beta[:n], params.sigma, params.gamma, params.omega, params.contact_matrix)
+    kw = dict(batch=n, duration=DAYS, dt=0.5, n_age=n_age, n_strain=n_strain)
+    before = ms.launch_multistrain_tsit5_2d.launches
+    got = ms.ensemble_solve_tsit5_2d(*args, **kw)
+    assert ms.launch_multistrain_tsit5_2d.launches == before + 1
+    want = ms._solve_2d_reference(
+        ms.pack_state_2d(y0, n, n_age, n_strain),
+        ms.pack_rates_2d(*args[1:5], n, n_age, n_strain), duration=DAYS, dt=0.5,
+        save_every=1.0, contact_tuple=ms._contact_tuple(params.contact_matrix),
+        n_age=n_age, n_strain=n_strain)
+    assert torch.isfinite(got).all() and _rel(got, want) <= TOL
+    pad = sorted(set(range(got.shape[1])) - set(ms._live_rows_2d(n_age, n_strain)))
+    assert not got[:, pad].any()  # padding rows stay zero
+    rows = ms.ensemble_solve_tsit5(*args, **kw)
+    for a, b in zip(ms.unpack_saves_2d(got, n_age, n_strain), ms.unpack_saves(rows, n_age, n_strain)):
+        assert _rel(a, b) <= TOL
+
+
+@pytest.mark.cuda
+def test_constructors_default_to_the_card(cuda):
+    """With no device the constructors put their tensors on the card."""
+    from dynode_tpu_torch import convert
+
+    params = model.multistrain_default_params()
+    state = model.multistrain_initial_state()
+    assert params.beta.is_cuda and params.contact_matrix.is_cuda
+    assert all(x.is_cuda for x in state)
+    assert convert.params_from_numpy(
+        {k: np.ones(3) for k in ("beta", "sigma", "gamma", "omega", "contact_matrix")}).beta.is_cuda
+    assert all(x.is_cuda for x in convert.state_from_numpy((np.ones(2),) + (np.ones((2, 3)),) * 4))

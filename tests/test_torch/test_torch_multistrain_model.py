@@ -43,13 +43,14 @@ def _jax_side(shape):
 def _port_defaults(shape, dtype=torch.float64):
     kw = SHAPES[shape]
     if not kw:
-        return (tm.multistrain_default_params(dtype=dtype),
-                tm.multistrain_initial_state(dtype=dtype))
+        return (tm.multistrain_default_params(dtype=dtype, device="cpu"),
+                tm.multistrain_initial_state(dtype=dtype, device="cpu"))
     params = tm.multistrain_default_params(
         kw["r0s"], kw["infectious_periods"], kw["latent_periods"],
-        kw["waning_periods"], n_age=len(kw["age_names"]), dtype=dtype,
+        kw["waning_periods"], n_age=len(kw["age_names"]), dtype=dtype, device="cpu",
     )
-    state = tm.multistrain_initial_state(kw["r0s"], kw["age_demographics"], dtype=dtype)
+    state = tm.multistrain_initial_state(kw["r0s"], kw["age_demographics"], dtype=dtype,
+                                     device="cpu")
     return params, state
 
 
@@ -67,13 +68,13 @@ def test_default_params_and_state_equal_config(shape):
 def test_convert_from_jax_values():
     """Tolerance: exact -- conversion is a cast of the numpy values."""
     jp, jy = _jax_side((2, 3))
-    params = convert.params_from_numpy(jp, dtype=torch.float64)
+    params = convert.params_from_numpy(jp, dtype=torch.float64, device="cpu")
     as_map = convert.params_from_numpy(
         {k: np.asarray(getattr(jp, k)) for k in
          ("beta", "sigma", "gamma", "omega", "contact_matrix")},
-        dtype=torch.float32,
+        dtype=torch.float32, device="cpu",
     )
-    state = convert.state_from_numpy(tuple(np.asarray(x) for x in jy))
+    state = convert.state_from_numpy(tuple(np.asarray(x) for x in jy), device="cpu")
     np.testing.assert_array_equal(params.beta.numpy(), np.asarray(jp.beta))
     np.testing.assert_array_equal(params.contact_matrix.numpy(), np.asarray(jp.contact_matrix))
     assert as_map.omega.dtype == torch.float32
@@ -81,7 +82,7 @@ def test_convert_from_jax_values():
     assert [x.dtype for x in state] == [torch.float32] * 5
     np.testing.assert_array_equal(state[2].numpy(), np.asarray(jy[2], np.float32))
     with pytest.raises(ValueError, match="s, e, i, r, c"):
-        convert.state_from_numpy(tuple(np.asarray(x) for x in jy[:4]))
+        convert.state_from_numpy(tuple(np.asarray(x) for x in jy[:4]), device="cpu")
 
 
 def _random_state(rng, A, K, batch=None):
@@ -105,8 +106,8 @@ def test_multistrain_ode_matches_jax(shape):
                                       gamma=jnp.asarray(jp.gamma, jnp.float32),
                                       omega=jnp.asarray(jp.omega, jnp.float32),
                                       contact_matrix=jnp.asarray(jp.contact_matrix, jnp.float32)))
-    tp = convert.params_from_numpy(jp)
-    got = tm.multistrain_ode(0.0, convert.state_from_numpy(state), tp)
+    tp = convert.params_from_numpy(jp, device="cpu")
+    got = tm.multistrain_ode(0.0, convert.state_from_numpy(state, device="cpu"), tp)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-6)
@@ -128,9 +129,9 @@ def test_multistrain_ode_ensemble_matches_jax(shape):
         multistrain_ensemble_params(jp32, jnp.asarray(scales, jnp.float32)),
     )
     tp = tm.multistrain_ensemble_params(
-        convert.params_from_numpy(jp), torch.as_tensor(scales, dtype=torch.float32)
+        convert.params_from_numpy(jp, device="cpu"), torch.as_tensor(scales, dtype=torch.float32)
     )
-    got = tm.multistrain_ode_ensemble(0.0, convert.state_from_numpy(state), tp)
+    got = tm.multistrain_ode_ensemble(0.0, convert.state_from_numpy(state, device="cpu"), tp)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-6)
 
@@ -139,7 +140,7 @@ def test_ensemble_state_broadcast_matches_jax():
     """Tolerance: exact -- a broadcast."""
     _, jy = _jax_side((2, 3))
     want = multistrain_ensemble_state(jy, 5)
-    got = tm.multistrain_ensemble_state(convert.state_from_numpy(jy, dtype=torch.float64), 5)
+    got = tm.multistrain_ensemble_state(convert.state_from_numpy(jy, dtype=torch.float64, device="cpu"), 5)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 

@@ -44,7 +44,7 @@ def _inputs(shape, batch, seed):
 def test_pack_unpack_roundtrip():
     """Tolerance: exact -- packing only moves values."""
     y0, beta, rates, _ = _inputs((2, 3), 8, 0)
-    packed = tms.pack_state(convert.state_from_numpy(y0), 8)
+    packed = tms.pack_state(convert.state_from_numpy(y0, device="cpu"), 8)
     assert packed.shape == (tms.D_ROWS, 8) and packed.is_contiguous()
     np.testing.assert_array_equal(packed.numpy(), np.asarray(jmp.pack_state(y0, 8)))
     s, e, i, r, c = tms.unpack_saves(packed[None])
@@ -78,7 +78,7 @@ def test_ensemble_solve_tsit5_matches_jax_reference(shape):
     kw = dict(batch=B, duration=60.0, dt=0.5, n_age=A, n_strain=K)
     want = np.asarray(jmp.ensemble_solve_reference(y0, beta, *rates, contact, **kw))
     got = tms.ensemble_solve_tsit5(
-        convert.state_from_numpy(y0), torch.as_tensor(beta),
+        convert.state_from_numpy(y0, device="cpu"), torch.as_tensor(beta),
         *map(torch.as_tensor, rates), torch.as_tensor(contact), **kw,
     )
     assert got.shape == want.shape == (61, A + 4 * A * K, B)
@@ -90,7 +90,7 @@ def test_save_every_stride():
     """Saves every 2 days are every second daily save. Tolerance: exact --
     the same steps in the same order."""
     y0, beta, rates, contact = _inputs((2, 3), 4, 5)
-    args = (convert.state_from_numpy(y0), torch.as_tensor(beta),
+    args = (convert.state_from_numpy(y0, device="cpu"), torch.as_tensor(beta),
             *map(torch.as_tensor, rates), torch.as_tensor(contact))
     daily = tms.ensemble_solve_reference(*args, batch=4, duration=10.0)
     every2 = tms.ensemble_solve_reference(*args, batch=4, duration=10.0, save_every=2.0)

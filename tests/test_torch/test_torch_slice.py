@@ -49,8 +49,8 @@ def test_slice_matches_jax_path():
     )
     want = [np.asarray(x) for x in jmp.unpack_saves(jsaves)]
 
-    params = dynode_tpu_torch.multistrain_default_params()
-    y0 = dynode_tpu_torch.multistrain_initial_state()
+    params = dynode_tpu_torch.multistrain_default_params(device="cpu")
+    y0 = dynode_tpu_torch.multistrain_initial_state(device="cpu")
     beta = params.beta[None, :] * torch.as_tensor(scales, dtype=torch.float32)[:, None]
     saves = dynode_tpu_torch.ensemble_solve_tsit5(
         y0, beta, params.sigma, params.gamma, params.omega, params.contact_matrix,
@@ -105,7 +105,8 @@ def test_cuda_request_raises_without_card(monkeypatch):
                                  params.contact_matrix, batch=4, duration=2.0)
     with pytest.raises(RuntimeError, match="CUDA device"):
         dynode_tpu_torch.ensemble_solve_kernel(
-            tms.multistrain_rows_rhs(dynode_tpu_torch.multistrain_default_params().contact_matrix),
+            tms.multistrain_rows_rhs(
+                dynode_tpu_torch.multistrain_default_params(device="cpu").contact_matrix),
             torch.zeros(26, 4, device="meta"), duration=1.0, dt=0.5,
         )
     with pytest.raises(ValueError, match="several devices"):
@@ -122,16 +123,23 @@ def test_gate_rejects_other_capabilities(monkeypatch):
 
 
 def test_build_command_targets_sm90a(tmp_path):
-    """The nvcc command is composed, not run: sm_90a, a shared library with
-    a plain C interface, the generated include dir, every source."""
-    cmd = _build.nvcc_command("cuda/bin/nvcc", tmp_path / "lib.so", tmp_path / "inc")
-    assert cmd[0] == "cuda/bin/nvcc"
-    joined = " ".join(cmd)
-    for flag in ("-gencode arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-                 "-Xcompiler -fPIC", f"-I {tmp_path / 'inc'}", f"-o {tmp_path / 'lib.so'}"):
-        assert flag in joined
-    assert str(_build.SRC_DIR / "multistrain_tsit5.cu") in cmd
-    assert "torch/extension.h" not in (_build.SRC_DIR / "multistrain_tsit5.cu").read_text()
+    """The nvcc commands are composed, not run: one compile for sm_90a per
+    source with the generated include dir, then one link of the objects
+    into a shared library with a plain C interface."""
+    compiles, link = _build.nvcc_commands("cuda/bin/nvcc", tmp_path / "lib.so", tmp_path / "inc")
+    sources = sorted(_build.SRC_DIR.glob("*.cu"))
+    assert [cmd[-1] for cmd in compiles] == [str(p) for p in sources]
+    assert str(_build.SRC_DIR / "multistrain_tsit5.cu") in compiles[0]
+    for cmd in compiles:
+        assert cmd[0] == "cuda/bin/nvcc"
+        joined = " ".join(cmd)
+        for flag in ("-gencode arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-c",
+                     "-Xcompiler -fPIC", f"-I {tmp_path / 'inc'}"):
+            assert flag in joined
+    objs = [str(tmp_path / f"{p.stem}.o") for p in sources]
+    assert link == ["cuda/bin/nvcc", "-shared", "-o", str(tmp_path / "lib.so"), *objs]
+    for path in sources:
+        assert "torch/extension.h" not in path.read_text()
     assert _build.BUILD_ROOT == REPO / "build" / "dynode_tpu_torch"
     assert len(_build.build_key()) == 16 and _build.build_key() == _build.build_key()
 
@@ -160,3 +168,24 @@ def test_kernel_instantiations_match_the_source():
     src = (_build.SRC_DIR / "multistrain_tsit5.cu").read_text()
     for a, k in tms.INSTANTIATED:
         assert f"launch<{a}, {k}>" in src
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda: dynode_tpu_torch.multistrain_default_params(),
+        lambda: dynode_tpu_torch.multistrain_initial_state(),
+        lambda: dynode_tpu_torch.convert.params_from_numpy(
+            {k: np.ones(3) for k in ("beta", "sigma", "gamma", "omega", "contact_matrix")}),
+        lambda: dynode_tpu_torch.convert.state_from_numpy((np.ones(2),) + (np.ones((2, 3)),) * 4),
+    ],
+    ids=["default_params", "initial_state", "params_from_numpy", "state_from_numpy"],
+)
+def test_constructors_default_to_the_card(make, monkeypatch):
+    """With no device a constructor puts its tensors on the card; on a box
+    without one it raises and does not fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        make()
+    with pytest.raises(RuntimeError, match="is_available"):
+        _device.default_device()
