@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one CUDA card of compute
-capability 9.0. It builds the four kernels of the scenario-ensemble path
-from the sources in the checkout (nvcc into ``build/dynode_tpu_torch/``, one
+capability 9.0. It builds the six kernels of the scenario-ensemble and SEIP
+paths from the sources in the checkout (nvcc into ``build/dynode_tpu_torch/``, one
 compile per CUDA source, all started together; Triton's JIT), then:
 
 1. checks the card and prints ``nvidia-smi``'s name and power limit;
@@ -21,7 +21,8 @@ compile per CUDA source, all started together; Triton's JIT), then:
    bf16 observable-only saves -- and checks finiteness, mass conservation
    and that every kernel launched;
 5. times each entry point and its plain version at the main path's shapes
-   (host clock, median of 3 after a warm-up), and each kernel alone with
+   (host clock: entry points median of 3 after a warm-up, plain versions
+   one call), and each kernel alone with
    CUDA events, and holds the main path's results from phase 4 against the
    plain version's at those shapes;
 6. holds the adaptive kernel against its plain version at the same block
@@ -37,9 +38,23 @@ compile per CUDA source, all started together; Triton's JIT), then:
    B = 9,984 -- and checks finiteness, zero exhausted intervals, padding,
    mass conservation and that every kernel launched;
 9. times them as phase 5 does and holds their main path against the plain
-   versions; then prints each kernel's work, counted from this run's
-   inputs (and, for the adaptive kernel, its statistics), and its bound on
-   the card.
+   versions;
+10. holds the two SEIP kernels (the production SEIP model of
+    ``bench_seip.py``, 640 floats per member) against their plain versions:
+    RK4 at 4,096 and 4,095 members, BS3 at the same widths with the per-block
+    gate of phase 6, every compartment in float32 over 200 days, bf16 saves,
+    per-age mass conservation, the attempt budget, and BS3 against RK4 at
+    dt = 0.05 on 1,024 members;
+11. drives the SEIP main path at full width (``bench_seip.py``): RK4 at
+    B = 32,768 with C in float32 and with all four compartments in bf16
+    (packed), BS3 at B = 32,768 (C, float32) and 65,536 (C, bf16), and
+    checks finiteness, zero exhausted intervals and that both kernels
+    launched;
+12. times the SEIP entry points, kernels and plain versions and holds the
+    C-only main path against the plain versions; then prints each kernel's
+    work, counted from the plain versions' operations on this run's inputs
+    (and, for the adaptive kernels, their statistics), and its bound on the
+    card.
 
 The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -77,6 +92,9 @@ ADAPTIVE_STAGES = 4  # bosh3: 3 RHS evaluations per attempt (FSAL), 1 more per b
 MIN_SAME = 0.99  # share of adaptive blocks whose stats must equal the plain version's
 TOL_ADAPTIVE_ALL = 1e-3  # adaptive kernel vs plain over all blocks (a decision may flip)
 TOL_ACCURACY = 5e-3  # adaptive vs dt = 0.05 constant step: max |d| / (1e-6 + |ref|)
+SEIP_WIDE = 32768  # bench_seip.py's KERNEL_WIDE; the adaptive kernel also runs at twice it
+SEIP_RTOL, SEIP_ATOL = 1e-4, 1e-3  # bench_seip.py's adaptive tolerances
+TOL_SEIP_ACCURACY = 1e-2  # SEIP BS3 vs RK4 at dt = 0.05, C: max |d| / max |ref| (bench_seip.py)
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 without tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
@@ -128,6 +146,32 @@ def adaptive_flops(stats, batch: int, block_b: int, table, rhs: int, n_rows: int
     members = [block_b] * (len(attempts) - 1) + [batch - block_b * (len(attempts) - 1)]
     member_attempts = sum(int(n) * m for n, m in zip(attempts, members))
     return member_attempts * per_attempt + batch * rhs
+
+
+_COUNTED_OPS = {"add", "sub", "rsub", "mul", "div", "neg", "abs", "maximum", "minimum", "clamp",
+                "where", "sqrt", "exp", "log", "cos", "sin", "gt", "ge", "lt", "le"}
+
+
+def count_ops(fn, exclude=frozenset()) -> int:
+    """Elementwise arithmetic operations ``fn`` performs in PyTorch: one per
+    output element of every arithmetic op (but those named in ``exclude``),
+    counted by a dispatch mode."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counted = _COUNTED_OPS - set(exclude)
+
+    class Counter(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__.rstrip("_") in counted and hasattr(out, "numel"):
+                Counter.n += out.numel()
+            return out
+
+    with Counter():
+        fn()
+    return Counter.n
 
 
 class SmokeFailure(RuntimeError):
@@ -192,6 +236,8 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+        elif line.startswith("wall time:"):
+            print("  nvcc", line)
 
     # the constructors put their tensors on the card when given no device
     on_card = [model.multistrain_default_params().beta, *model.multistrain_initial_state()]
@@ -376,7 +422,8 @@ def main() -> int:
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        float(out.reshape(-1)[-1])  # a host fetch of a scalar of the result
+        last = out[-1] if isinstance(out, tuple) else out
+        float(last.reshape(-1)[-1])  # a host fetch of a scalar of the result
         return (time.perf_counter() - t) * 1e3, out
 
     def median_ms(fn):
@@ -399,17 +446,17 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / n
 
-    print(f"phase 5: times, median of 3 after a warm-up, on {smi}")
+    print(f"phase 5: times, entry points median of 3 after a warm-up, plain versions one call, on {smi}")
     ms_args = (y0, beta, base.sigma, base.gamma, base.omega, base.contact_matrix)
     ms_kw = dict(batch=ENSEMBLE, duration=DAYS, dt=DT)
     k_ms, _ = median_ms(lambda: ms.ensemble_solve_tsit5(*ms_args, **ms_kw))
-    p_ms_, plain = median_ms(lambda: ms.ensemble_solve_reference(*ms_args, **ms_kw))
+    p_ms_, plain = wall_ms(lambda: ms.ensemble_solve_reference(*ms_args, **ms_kw))
     report("multistrain_tsit5", f"main path B={ENSEMBLE}", saves, plain, TOL_F32)
     times = {"multistrain_tsit5": (k_ms, p_ms_, ENSEMBLE)}
     del saves, plain
     k_ms, _ = median_ms(lambda: gen.ensemble_solve_kernel(
         rhs_ms, y_wide, p_wide, duration=DAYS, dt=DT, **obs_kw))
-    p_ms_, plain = median_ms(lambda: gen.select_saves(gen.ensemble_solve_kernel_reference(
+    p_ms_, plain = wall_ms(lambda: gen.select_saves(gen.ensemble_solve_kernel_reference(
         rhs_ms, y_wide, p_wide, duration=DAYS, dt=DT), c_rows, torch.bfloat16, True))
     report("rk_solve", f"main path B={WIDE}, c rows, bf16, padded", obs[:, :len(c_rows)],
            plain[:, :len(c_rows)], TOL_BF16)
@@ -589,7 +636,7 @@ def main() -> int:
     del s, e, i, r, c, mass
 
     # ---- 9. times of the new kernels, and their main path against the plain ---
-    print(f"phase 9: times, median of 3 after a warm-up, on {smi}")
+    print(f"phase 9: times, entry points median of 3 after a warm-up, plain versions one call, on {smi}")
     k_ms, _ = median_ms(lambda: gen.ensemble_solve_kernel_adaptive(
         rhs_ms, y_wide, p_wide, **adaptive_kw, **obs_kw)[0])
     plain_stats = {}
@@ -599,7 +646,7 @@ def main() -> int:
             rhs_ms, y_wide, p_wide, block_b=gen.ADAPTIVE_BLOCK, **adaptive_kw)
         return gen.select_saves(full, c_rows, torch.bfloat16, True)
 
-    p_ms_, plain = median_ms(adaptive_plain)
+    p_ms_, plain = wall_ms(adaptive_plain)
     report_adaptive(f"main path B={WIDE}, c rows, bf16, padded", obs_ad[:, :len(c_rows)], obs_stats,
                     plain[:, :len(c_rows)], plain_stats["s"], TOL_BF16, TOL_BF16)
     times["rk_solve_adaptive"] = (k_ms, p_ms_, WIDE)
@@ -609,7 +656,7 @@ def main() -> int:
     ms2_args = (y0, beta, base.sigma, base.gamma, base.omega, base.contact_matrix)
     ms2_kw = dict(batch=ENSEMBLE, duration=DAYS, dt=DT)
     k_ms, _ = median_ms(lambda: ms.ensemble_solve_tsit5_2d(*ms2_args, **ms2_kw))
-    p_ms_, plain = median_ms(lambda: solve_2d_plain(ms2_args, ms2_kw))
+    p_ms_, plain = wall_ms(lambda: solve_2d_plain(ms2_args, ms2_kw))
     report("multistrain_tsit5_2d", f"main path B={ENSEMBLE}", saves_2d, plain, TOL_F32)
     times["multistrain_tsit5_2d"] = (k_ms, p_ms_, ENSEMBLE)
     del plain
@@ -632,6 +679,248 @@ def main() -> int:
     print(f"  B={ENSEMBLE}, kernel alone: multistrain_tsit5_2d {device_ms['multistrain_tsit5_2d']:.3f} ms "
           f"vs multistrain_tsit5 {device_ms['multistrain_tsit5']:.3f} ms (CUDA events) [{smi}]")
 
+    # ---- 10. the SEIP kernels against their plain versions ---------------------
+    from dynode_tpu_torch.models import seip as seip_model
+    from dynode_tpu_torch.ops import seip as tsp
+
+    print(f"phase 10: SEIP kernels vs plain, all compartments f32, {DAYS:.0f} days; RK4 dt={DT}, "
+          f"BS3 rtol {SEIP_RTOL:g}, atol {SEIP_ATOL:g}, block_b {tsp.SEIP_ADAPTIVE_BLOCK} on both sides")
+    on_card = [seip_model.seip_default_params(True).beta, *seip_model.seip_initial_state(True)]
+    check(all(x.device.type == dev.type for x in on_card), "a SEIP constructor left the card")
+    sp = seip_model.seip_default_params(True, device=dev)
+    sy = seip_model.seip_initial_state(True, device=dev)
+    seip_kw = dict(duration=DAYS, rtol=SEIP_RTOL, atol=SEIP_ATOL)
+    errors.update(seip_rk4=[], seip_bs3=[])
+    seip_scales = torch.as_tensor(rng.uniform(0.85, 1.2, SLICE), dtype=torch.float32, device=dev)
+
+    def report_seip(what, got, want, tol, kernel="seip_rk4"):
+        for name, g, w in zip("SEIC", got, want):
+            report(kernel, f"{what} {name}", g, w, tol)
+
+    def seip_mass(outs) -> float:
+        """Largest relative drift of S + E + I summed per age (C counts incidence)."""
+        living = sum(x.float().sum(dim=(2, 3, 4)) for x in outs[:3])  # (T, A, B)
+        return float(((living - living[0]).abs() / living[0]).max())
+
+    def report_seip_adaptive(what, got, got_stats, want, want_stats, tol_same, tol_all):
+        """The per-block gate of phase 6 on each saved compartment, each
+        relative to its own largest plain value."""
+        same = torch.ones_like(got_stats["n_accepted"], dtype=torch.bool)
+        for key in got_stats:
+            same &= got_stats[key] == want_stats[key]
+        block_of = torch.arange(got[0].shape[-1], device=dev) // tsp.SEIP_ADAPTIVE_BLOCK
+        block_abs, block_rel = [], []
+        for g, w in zip(got, want):  # (T, *compartment, B)
+            member_abs = (g.float() - w.float()).abs().flatten(0, -2).amax(dim=0)
+            b_abs = torch.zeros(same.shape[0], device=dev).scatter_reduce_(0, block_of, member_abs, "amax")
+            block_abs.append(b_abs)
+            block_rel.append(b_abs / float(w.float().abs().max()))
+        block_abs = torch.stack(block_abs).amax(dim=0)
+        block_rel = torch.stack(block_rel).amax(dim=0)
+        rel_same = float(block_rel[same].max()) if bool(same.any()) else float("nan")
+        rel_all = float(block_rel.max())
+        frac = float(same.float().mean())
+        attempts = int((got_stats["n_accepted"] + got_stats["n_rejected"]).sum())
+        print(f"  seip_bs3 {what}: {int((~same).sum())} of {same.numel()} blocks with other stats; "
+              f"max rel err {rel_same:.3e} over equal-stats blocks (tol {tol_same:.0e}), {rel_all:.3e} "
+              f"over all (tol {tol_all:.0e}); {attempts} attempts, "
+              f"{int(got_stats['exhausted_intervals'].sum())} exhausted")
+        check(frac >= MIN_SAME, f"seip_bs3 {what}: only {frac:.3f} of blocks match")
+        check(rel_same <= tol_same, f"seip_bs3 {what}: rel err {rel_same:.3e} > {tol_same:.0e}")
+        check(rel_all <= tol_all, f"seip_bs3 {what}: rel err {rel_all:.3e} > {tol_all:.0e}")
+        if tol_same == TOL_F32:
+            errors["seip_bs3"].append(float(block_abs[same].max()))
+
+    want_rk4 = tsp.seip_solve_reference(sy, sp, seip_scales, duration=DAYS, dt=DT)
+    for b in (SLICE, RAGGED):
+        got = tsp.seip_ensemble_solve(sy, sp, seip_scales[:b], duration=DAYS, dt=DT)
+        check(all(bool(torch.isfinite(x).all()) for x in got), f"seip_rk4 B={b}: non-finite saves")
+        report_seip(f"B={b}", got, [x[..., :b] for x in want_rk4], TOL_F32)
+        drift = seip_mass(got)
+        print(f"  seip_rk4 B={b}: per-age mass drift {drift:.3e} (tol {TOL_MASS:.0e})")
+        check(drift <= TOL_MASS, f"seip_rk4 B={b}: mass drift {drift:.3e}")
+    got = tsp.seip_ensemble_solve(sy, sp, seip_scales, duration=DAYS, dt=DT, save_dtype=torch.bfloat16)
+    report_seip("bf16 saves", got, want_rk4, TOL_BF16)
+    for b in (SLICE, RAGGED):
+        got, got_stats = tsp.seip_ensemble_solve_adaptive(sy, sp, seip_scales[:b], **seip_kw)
+        want, want_stats = tsp.seip_solve_adaptive_reference(
+            sy, sp, seip_scales[:b], block_b=tsp.SEIP_ADAPTIVE_BLOCK, **seip_kw)
+        check(int(got_stats["exhausted_intervals"].sum()) == 0, f"seip_bs3 B={b}: budget exhausted")
+        report_seip_adaptive(f"B={b}", got, got_stats, want, want_stats, TOL_F32, TOL_ADAPTIVE_ALL)
+        drift = seip_mass(got)
+        print(f"  seip_bs3 B={b}: per-age mass drift {drift:.3e} (tol {TOL_MASS:.0e})")
+        check(drift <= TOL_MASS, f"seip_bs3 B={b}: mass drift {drift:.3e}")
+        if b == SLICE:
+            want_bs3, want_bs3_stats = want, want_stats
+    got, got_stats = tsp.seip_ensemble_solve_adaptive(sy, sp, seip_scales, save_dtype=torch.bfloat16, **seip_kw)
+    report_seip_adaptive("bf16 saves", got, got_stats, want_bs3, want_bs3_stats, TOL_BF16, TOL_BF16)
+    del want_rk4, want_bs3, got
+
+    # the attempt budget: one attempt per interval cannot keep up at rtol 1e-6
+    (c_bud,), bud_stats = tsp.seip_ensemble_solve_adaptive(
+        sy, sp, seip_scales, duration=DAYS, rtol=1e-6, atol=1e-6, steps_per_save=1, save=(3,))
+    nb = bud_stats["n_accepted"].shape[0]
+    nan_slot = torch.isnan(c_bud).flatten(1, -2).all(dim=1).reshape(c_bud.shape[0], nb, -1).all(dim=2)
+    exhausted = bud_stats["exhausted_intervals"]
+    print(f"  seip_bs3 budget (rtol 1e-6, 1 attempt): all-NaN slots per block "
+          f"{int(nan_slot.sum(0).min())}..{int(nan_slot.sum(0).max())}, exhausted_intervals "
+          f"{int(exhausted.min())}..{int(exhausted.max())}, slot 0 NaN in {int(nan_slot[0].sum())} blocks")
+    check(bool((nan_slot.sum(0) == exhausted).all()), "SEIP NaN slots differ from exhausted_intervals")
+    check(bool((exhausted > 0).all()), "a SEIP block kept up with one attempt per interval")
+    check(not bool(nan_slot[0].any()), "SEIP slot 0 is NaN")
+
+    # accuracy against an independent solve: the RK4 kernel at dt = 0.05 (bench_seip.py's gate)
+    m = 1024
+    acc_scales = torch.as_tensor(rng.uniform(0.85, 1.2, m), dtype=torch.float32, device=dev)
+    (c_ref,) = tsp.seip_ensemble_solve(sy, sp, acc_scales, duration=DAYS, dt=0.05, save=(3,))
+    (c_ad,), ad_stats = tsp.seip_ensemble_solve_adaptive(sy, sp, acc_scales, save=(3,), **seip_kw)
+    _, acc_rel = rel_err(c_ad, c_ref)
+    print(f"  seip_bs3 vs seip_rk4 at dt = 0.05, B={m}: max rel err {acc_rel:.3e} "
+          f"(tol {TOL_SEIP_ACCURACY:.0e}), exhausted {int(ad_stats['exhausted_intervals'].sum())}")
+    check(acc_rel < TOL_SEIP_ACCURACY and int(ad_stats["exhausted_intervals"].sum()) == 0,
+          f"SEIP adaptive accuracy gate: {acc_rel:.3e}")
+
+    # ---- 11. the SEIP main path at full width ------------------------------------
+    print(f"phase 11: SEIP main path (bench_seip.py), scales Uniform(0.85, 1.2): RK4 at B={SEIP_WIDE} "
+          f"(C f32; all four bf16, packed), BS3 at B={SEIP_WIDE} (C f32, packed) and "
+          f"B={2 * SEIP_WIDE} (C bf16, packed)")
+    main_scales = torch.as_tensor(rng.uniform(0.85, 1.2, SEIP_WIDE), dtype=torch.float32, device=dev)
+    wide_scales = torch.as_tensor(rng.uniform(0.85, 1.2, 2 * SEIP_WIDE), dtype=torch.float32, device=dev)
+    c_kw = dict(save=(3,), packed=True)
+    torch.cuda.synchronize()
+    tsp.launch_seip_rk4.launches = 0
+    tsp.launch_seip_bs3.launches = 0
+    (c_rk4,) = tsp.seip_ensemble_solve(sy, sp, main_scales, duration=DAYS, dt=DT, save=(3,))
+    full4 = tsp.seip_ensemble_solve(sy, sp, main_scales, duration=DAYS, dt=DT,
+                                    save_dtype=torch.bfloat16, packed=True)
+    (c_bs3,), bs3_stats = tsp.seip_ensemble_solve_adaptive(sy, sp, main_scales, **seip_kw, **c_kw)
+    (c_wide,), wide_stats = tsp.seip_ensemble_solve_adaptive(
+        sy, sp, wide_scales, save_dtype=torch.bfloat16, **seip_kw, **c_kw)
+    torch.cuda.synchronize()
+    launches.update(seip_rk4=tsp.launch_seip_rk4.launches, seip_bs3=tsp.launch_seip_bs3.launches)
+    print(f"  launches in the SEIP main path: { {k: launches[k] for k in ('seip_rk4', 'seip_bs3')} }")
+    check(launches["seip_rk4"] > 0 and launches["seip_bs3"] > 0,
+          f"a SEIP kernel of the path did not launch: {launches}")
+    n_days = int(DAYS) + 1
+    check(tuple(c_rk4.shape) == (n_days, 4, 4, 4, 2, SEIP_WIDE), f"SEIP C saves {tuple(c_rk4.shape)}")
+    check(tuple(full4[0].shape) == (n_days, 4, 4, 4, 4, 8, SEIP_WIDE // 8), "SEIP packed S saves")
+    for what, x in (("rk4 C f32", c_rk4), ("bs3 C f32", c_bs3), ("bs3 C bf16", c_wide),
+                    *((f"rk4 {n} bf16", o) for n, o in zip("SEIC", full4))):
+        check(bool(torch.isfinite(x).all()), f"SEIP {what}: non-finite saves")
+    for what, st in ((f"B={SEIP_WIDE}", bs3_stats), (f"B={2 * SEIP_WIDE}", wide_stats)):
+        n_bad = int(st["exhausted_intervals"].sum())
+        print(f"  seip_bs3 {what}: {int((st['n_accepted'] + st['n_rejected']).sum())} attempts in "
+              f"{st['n_accepted'].shape[0]} blocks, {int(st['n_rejected'].sum())} rejected, "
+              f"exhausted_intervals {n_bad}")
+        check(n_bad == 0, f"seip_bs3 {what}: {n_bad} exhausted intervals")
+    f4_gb = sum(o.numel() for o in full4) * 2 / 1e9
+    print(f"  SEIP saves finite: RK4 C f32 {c_rk4.numel() * 4 / 1e9:.2f} GB, all four bf16 {f4_gb:.2f} GB; "
+          f"BS3 C f32 {c_bs3.numel() * 4 / 1e9:.2f} GB, C bf16 {c_wide.numel() * 2 / 1e9:.2f} GB")
+    del full4
+
+    # ---- 12. SEIP times, the main path against the plain versions, bounds -------
+    print(f"phase 12: SEIP times, entry points median of 3 after a warm-up, plain versions one call, "
+          f"on {smi}")
+    seip_entry = {
+        "rk4_c": lambda: tsp.seip_ensemble_solve(sy, sp, main_scales, duration=DAYS, dt=DT, save=(3,))[0],
+        "rk4_full4": lambda: tsp.seip_ensemble_solve(sy, sp, main_scales, duration=DAYS, dt=DT,
+                                                     save_dtype=torch.bfloat16, packed=True)[3],
+        "bs3_c": lambda: tsp.seip_ensemble_solve_adaptive(sy, sp, main_scales, **seip_kw, **c_kw)[0][0],
+        "bs3_wide": lambda: tsp.seip_ensemble_solve_adaptive(
+            sy, sp, wide_scales, save_dtype=torch.bfloat16, **seip_kw, **c_kw)[0][0],
+    }
+    seip_ms = {name: median_ms(fn)[0] for name, fn in seip_entry.items()}
+    p_rk4, (plain_c,) = wall_ms(lambda: tsp.seip_solve_reference(
+        sy, sp, main_scales, duration=DAYS, dt=DT, save=(3,)))
+    report("seip_rk4", f"main path B={SEIP_WIDE} C", c_rk4, plain_c, TOL_F32)
+    del plain_c, c_rk4
+    plain_stats = {}
+
+    def bs3_plain(scales):
+        def run():
+            outs, plain_stats["s"] = tsp.seip_solve_adaptive_reference(
+                sy, sp, scales, block_b=tsp.SEIP_ADAPTIVE_BLOCK, save=(3,), **seip_kw)
+            return outs
+        return run
+
+    p_bs3_c, plain = wall_ms(bs3_plain(main_scales))
+    report_seip_adaptive(f"main path B={SEIP_WIDE} C", (tsp.unpack_members(c_bs3),), bs3_stats,
+                         plain, plain_stats["s"], TOL_F32, TOL_ADAPTIVE_ALL)
+    p_bs3, plain = wall_ms(bs3_plain(wide_scales))
+    report_seip_adaptive(f"main path B={2 * SEIP_WIDE} C bf16", (tsp.unpack_members(c_wide),), wide_stats,
+                         (plain[0].to(torch.bfloat16),), plain_stats["s"], TOL_BF16, TOL_BF16)
+    del plain, c_bs3, c_wide
+    times["seip_rk4"] = (seip_ms["rk4_c"], p_rk4, SEIP_WIDE)
+    times["seip_bs3"] = (seip_ms["bs3_wide"], p_bs3, 2 * SEIP_WIDE)
+    P = tsp.seip_static_params(sp)
+    n_steps_seip = int(round(DAYS / DT))
+    device_ms["seip_rk4"] = event_ms(lambda: tsp.launch_seip_rk4(
+        sy, P, tsp._norm_scales(main_scales, 2, torch.float32, dev), dt=DT, n_steps=n_steps_seip,
+        save_stride=int(round(1.0 / DT)), save=(3,), save_dtype=torch.float32, packed=False))
+    device_ms["seip_bs3"] = event_ms(lambda: tsp.launch_seip_bs3(
+        sy, P, tsp._norm_scales(wide_scales, 2, torch.float32, dev), n_saves=n_days, save_every=1.0,
+        rtol=SEIP_RTOL, atol=SEIP_ATOL, dt0=1.0 / 8, steps_per_save=8, block_b=tsp.SEIP_ADAPTIVE_BLOCK,
+        save=(3,), save_dtype=torch.bfloat16, packed=True))
+    # where the RK4 kernel's time goes: the same solve saving only its two end points
+    rk4_ends_ms = event_ms(lambda: tsp.launch_seip_rk4(
+        sy, P, tsp._norm_scales(main_scales, 2, torch.float32, dev), dt=DT, n_steps=n_steps_seip,
+        save_stride=n_steps_seip, save=(3,), save_dtype=torch.float32, packed=False))
+    print(f"  seip_rk4 B={SEIP_WIDE}: kernel alone {rk4_ends_ms:.3f} ms saving only t = 0 and "
+          f"t = {DAYS:.0f} (CUDA events), against {device_ms['seip_rk4']:.3f} ms with daily C saves [{smi}]")
+    for name, what in (("rk4_c", f"seip_rk4 B={SEIP_WIDE}, C f32"),
+                       ("rk4_full4", f"seip_rk4 B={SEIP_WIDE}, all four bf16 packed"),
+                       ("bs3_c", f"seip_bs3 B={SEIP_WIDE}, C f32 packed"),
+                       ("bs3_wide", f"seip_bs3 B={2 * SEIP_WIDE}, C bf16 packed")):
+        b = 2 * SEIP_WIDE if name == "bs3_wide" else SEIP_WIDE
+        print(f"  {what}: entry point {seip_ms[name]:.3f} ms ({b / seip_ms[name] * 1e3:,.0f} traj/s) [{smi}]")
+    for name, (k_ms, p_ms_, b) in ((k, times[k]) for k in ("seip_rk4", "seip_bs3")):
+        print(f"  {name} B={b}: kernel alone {device_ms[name]:.3f} ms (CUDA events), "
+              f"plain {p_ms_:.1f} ms ({b / p_ms_ * 1e3:,.0f} traj/s) [{smi}]")
+    print(f"  seip_bs3 B={SEIP_WIDE}, C f32: plain {p_bs3_c:.1f} ms [{smi}]")
+
+    # work of the SEIP kernels, counted from the plain versions' operations
+    cpu_p = seip_model.seip_default_params(True, device="cpu")
+    cpu_y = seip_model.seip_initial_state(True, device="cpu")
+    one = torch.ones(1)
+    step_ops = count_ops(lambda: tsp.seip_solve_reference(cpu_y, cpu_p, one, duration=DT, dt=DT,
+                                                          save_every=DT))
+    cpu_consts = tsp._Consts(tsp.seip_static_params(cpu_p), torch.float32, torch.device("cpu"))
+    one_rhs = lambda: tsp.seip_kernel_rhs(cpu_consts, seip_model.seip_ensemble_state(cpu_y, 1),
+                                          torch.zeros(1), torch.ones(2, 1))
+    rhs_ops = count_ops(one_rhs)
+    probe = {}
+
+    def one_day():
+        _, probe["s"] = tsp.seip_solve_adaptive_reference(cpu_y, cpu_p, one, duration=2.0, **{
+            k: v for k, v in seip_kw.items() if k != "duration"})
+
+    # The plain version keeps or drops a whole attempt with selects over the
+    # state (y, k, the NaN saves); the kernel branches on the block's decision
+    # instead, so outside the RHS those selects are not work.
+    no_select = {"where"}
+    day_ops = count_ops(one_day, exclude=no_select)
+    rhs_arith = count_ops(one_rhs, exclude=no_select)
+    ps = probe["s"]
+    a1, r1 = int(ps["n_accepted"][0] + ps["n_rejected"][0]), int(ps["n_rejected"][0])
+    attempt_ops = (day_ops - rhs_arith * (3 * a1 + r1 + 1)) / a1 + 3 * rhs_ops
+    print(f"  SEIP work per member, counted from the plain versions: RHS {rhs_ops:,} operations, "
+          f"RK4 step {step_ops:,}, BS3 attempt {attempt_ops:,.0f} (plus one RHS after each rejection; "
+          f"no selects over the state)")
+    stats_w = wide_stats
+    att_w = (stats_w["n_accepted"] + stats_w["n_rejected"]).long().cpu()
+    rej_w = stats_w["n_rejected"].long().cpu()
+    bb = tsp.SEIP_ADAPTIVE_BLOCK
+    members = torch.full_like(att_w, bb)
+    members[-1] = 2 * SEIP_WIDE - bb * (len(att_w) - 1)
+    bs3_flops = int((members * (att_w * attempt_ops + (rej_w + 1) * rhs_ops)).sum())
+    seip_in = 4 * 640 + 8 * 295  # shared y0 and the float64 constants
+    seip_work = {
+        "seip_rk4": (n_steps_seip * SEIP_WIDE * step_ops,
+                     seip_in + 4 * 2 * SEIP_WIDE + 4 * n_days * 128 * SEIP_WIDE),
+        "seip_bs3": (bs3_flops, seip_in + 4 * 2 * 2 * SEIP_WIDE + 2 * n_days * 128 * 2 * SEIP_WIDE
+                     + 12 * len(att_w)),
+    }
+
     # ---- the kernels' line: counts of this run's work and the card's bound ---
     obs_attempts = int((obs_stats["n_accepted"] + obs_stats["n_rejected"]).sum())
     obs_bytes = 8 * 2  # a member's save slot: 6 c rows + 2 zero rows, bf16
@@ -650,6 +939,7 @@ def main() -> int:
         "multistrain_tsit5_2d": (
             n_steps * ENSEMBLE * step_flops_2d(METHODS["tsit5"], A, K),
             4 * ENSEMBLE * (D2 + 32) + 4 * A * A + 4 * (int(DAYS) + 1) * D2 * ENSEMBLE),
+        **seip_work,
     }
     print(f"  adaptive B={WIDE}: {obs_attempts} attempts; work counted from the stats")
     check("jax" not in sys.modules, "jax was imported")
@@ -662,6 +952,8 @@ def main() -> int:
                               "dynode_tpu/ops/generic_pallas.py:516"),
         "multistrain_tsit5_2d": ("cuda", "dynode_tpu_torch/csrc/multistrain_tsit5_2d.cu",
                                  "dynode_tpu/ops/multistrain_pallas.py:598"),
+        "seip_rk4": ("cuda", "dynode_tpu_torch/csrc/seip_rk4.cu", "dynode_tpu/ops/seip_pallas.py:306"),
+        "seip_bs3": ("cuda", "dynode_tpu_torch/csrc/seip_bs3.cu", "dynode_tpu/ops/seip_pallas.py:605"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Block-width sweep of the port's adaptive kernel, and the two multi-strain
+"""Block-width sweeps of the port's adaptive kernels, and the two multi-strain
 kernels in turns, on one H100.
 
-    python3 chip_sweep.py
+    python3 chip_sweep.py          # everything
+    python3 chip_sweep.py seip     # the SEIP block-width sweep only
 
 Run from the root of a checkout on a machine with one CUDA card of compute
 capability 9.0. It solves the two adaptive main paths of ``chip_smoke.py`` --
@@ -17,7 +18,12 @@ width changes the work as well as the parallelism. Then it times the row
 kernel (``csrc/multistrain_tsit5.cu``) and the 2-D kernel
 (``csrc/multistrain_tsit5_2d.cu``) at the main path's B = 9,984 in turns
 (row, 2-D, 2-D, row; five rounds; CUDA events over 5 launches each) and
-prints each one's median. It imports no JAX and exits non-zero without a
+prints each one's median. Last, it sweeps the SEIP adaptive kernel
+(``csrc/seip_bs3.cu``) over the lockstep widths it is compiled for on the
+SEIP main path of ``chip_smoke.py`` (``bench_seip.py``'s production
+configuration, 200 days, rtol 1e-4, atol 1e-3, C saved in the packed
+layout): B = 32,768 in float32 and B = 65,536 in bf16, with the same
+timing and statistics. It imports no JAX and exits non-zero without a
 card.
 """
 
@@ -89,6 +95,8 @@ def main() -> int:
               f"{int(stats['n_rejected'].sum())}, exhausted {int(stats['exhausted_intervals'].sum())}, "
               f"n_regs {gtri.kernel_info['n_regs']}, n_spills {gtri.kernel_info['n_spills']} [{smi}]")
 
+    if sys.argv[1:] == ["seip"]:
+        return seip_sweep(dev, smi)
     for batch in WIDTHS_B:
         for block_b in WIDTHS:
             run(batch, block_b)
@@ -126,6 +134,45 @@ def main() -> int:
     for name, ts in times.items():
         print(f"multi-strain {name} kernel, B={n}, {DAYS:.0f} days: median {statistics.median(ts):.3f} ms "
               f"of {len(ts)} (min {min(ts):.3f}, max {max(ts):.3f}), in turns [{smi}]")
+    return seip_sweep(dev, smi)
+
+
+def seip_sweep(dev, smi) -> int:
+    """The SEIP adaptive kernel at every lockstep width it is compiled for."""
+    import torch
+
+    from dynode_tpu_torch.models import seip as seip_model
+    from dynode_tpu_torch.ops import seip as tsp
+
+    params = seip_model.seip_default_params(True, device=dev)
+    y0 = seip_model.seip_initial_state(True, device=dev)
+    for batch, save_dtype in ((32768, torch.float32), (65536, torch.bfloat16)):
+        scales = torch.as_tensor(np.random.default_rng(2).uniform(0.85, 1.2, batch),
+                                 dtype=torch.float32, device=dev)
+        for block_b in tsp.ADAPTIVE_BLOCKS:
+            def solve():
+                return tsp.seip_ensemble_solve_adaptive(
+                    y0, params, scales, duration=DAYS, rtol=1e-4, atol=1e-3, save=(3,),
+                    save_dtype=save_dtype, packed=True, block_b=block_b)
+
+            _, stats = solve()  # warm-up
+            times = []
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                solve()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            t = statistics.median(times)
+            attempts = int((stats["n_accepted"] + stats["n_rejected"]).sum())
+            rejected = int(stats["n_rejected"].sum())
+            n_blocks = stats["n_accepted"].shape[0]
+            print(f"SEIP B={batch} C {str(save_dtype).removeprefix('torch.')} block_b {block_b:2d}: "
+                  f"{t:.3f} ms ({batch / t * 1e3:,.0f} traj/s), {attempts} attempts in {n_blocks} "
+                  f"blocks ({attempts / n_blocks:.1f} per block), rejected {rejected}, "
+                  f"exhausted {int(stats['exhausted_intervals'].sum())} [{smi}]")
     return 0
 
 

@@ -10,18 +10,21 @@ Constructors put their tensors on the card unless given ``device="cpu"``.
 The package imports ``torch`` and never ``jax``.
 """
 
-from . import convert, models, ode, ops
+from . import convert, models, ode, ops, utils
 from .models.multistrain import (
     MultiStrainParams,
     multistrain_default_params,
     multistrain_initial_state,
     multistrain_ode,
 )
+from .models.seip import SEIPParams, seip_default_params, seip_initial_state, seip_ode
 from .ops import (
     ensemble_solve_kernel,
     ensemble_solve_kernel_adaptive,
     ensemble_solve_tsit5,
     ensemble_solve_tsit5_2d,
+    seip_ensemble_solve,
+    seip_ensemble_solve_adaptive,
     unpack_saves,
     unpack_saves_2d,
 )
@@ -31,10 +34,17 @@ __all__ = [
     "models",
     "ode",
     "ops",
+    "utils",
     "MultiStrainParams",
+    "SEIPParams",
     "multistrain_default_params",
     "multistrain_initial_state",
     "multistrain_ode",
+    "seip_default_params",
+    "seip_initial_state",
+    "seip_ode",
+    "seip_ensemble_solve",
+    "seip_ensemble_solve_adaptive",
     "ensemble_solve_kernel",
     "ensemble_solve_kernel_adaptive",
     "ensemble_solve_tsit5",

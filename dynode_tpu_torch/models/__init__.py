@@ -1,4 +1,4 @@
-"""Model families of the port (the multi-strain SEIRS so far)."""
+"""Model families of the port: the multi-strain SEIRS and the production SEIP."""
 
 from .multistrain import (
     MultiStrainParams,
@@ -10,6 +10,15 @@ from .multistrain import (
     multistrain_ode,
     multistrain_ode_ensemble,
 )
+from .seip import (
+    SEIPParams,
+    seip_default_params,
+    seip_ensemble_params,
+    seip_ensemble_state,
+    seip_initial_state,
+    seip_ode,
+    seip_ode_ensemble,
+)
 
 __all__ = [
     "MultiStrainParams",
@@ -20,4 +29,11 @@ __all__ = [
     "multistrain_ode_ensemble",
     "multistrain_ensemble_state",
     "multistrain_ensemble_params",
+    "SEIPParams",
+    "seip_default_params",
+    "seip_initial_state",
+    "seip_ode",
+    "seip_ode_ensemble",
+    "seip_ensemble_state",
+    "seip_ensemble_params",
 ]

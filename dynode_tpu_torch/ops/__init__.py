@@ -5,8 +5,11 @@ CUDA C++ kernel (``csrc/multistrain_tsit5.cu``), and ``ensemble_solve_tsit5_2d``
 the same model on the aligned 2-D layout in another (``csrc/multistrain_tsit5_2d.cu``);
 ``ensemble_solve_kernel`` and ``ensemble_solve_kernel_adaptive`` do a
 constant-step and an adaptive (lockstep-dt) solve of any rows-RHS in Triton
-kernels (``generic_triton.py``). On CPU tensors each runs its plain PyTorch
-version; on CUDA tensors it launches the kernel or raises.
+kernels (``generic_triton.py``); ``seip_ensemble_solve`` and
+``seip_ensemble_solve_adaptive`` solve the production SEIP ensemble with RK4
+and lockstep BS3(2) in CUDA C++ (``csrc/seip_rk4.cu``, ``csrc/seip_bs3.cu``).
+On CPU tensors each runs its plain PyTorch version; on CUDA tensors it
+launches the kernel or raises.
 """
 
 from .generic import (
@@ -30,6 +33,15 @@ from .multistrain import (
     unpack_saves,
     unpack_saves_2d,
 )
+from .seip import (
+    pack_members,
+    seip_ensemble_solve,
+    seip_ensemble_solve_adaptive,
+    seip_solve_adaptive_reference,
+    seip_solve_reference,
+    seip_static_params,
+    unpack_members,
+)
 
 __all__ = [
     "RowsRHS",
@@ -49,4 +61,11 @@ __all__ = [
     "pack_rates_2d",
     "unpack_saves",
     "unpack_saves_2d",
+    "pack_members",
+    "unpack_members",
+    "seip_ensemble_solve",
+    "seip_ensemble_solve_adaptive",
+    "seip_solve_reference",
+    "seip_solve_adaptive_reference",
+    "seip_static_params",
 ]

@@ -5,6 +5,7 @@ with its own nvcc, all started together, and links the objects into one
 shared library with a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         [SOURCE_FLAGS of the source] \
          -c -I <generated include dir> -o <obj> csrc/<source>.cu   # one per source
     nvcc -shared -o <lib> <objs>
 
@@ -28,6 +29,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from ..ode.solvers import Tsit5
@@ -44,6 +47,13 @@ NVCC_FLAGS = (
     # print registers and spills of every kernel into the build log
     "-Xptxas", "-v",
 )
+
+#: flags of one source on top of NVCC_FLAGS. The adaptive SEIP kernel must round
+#: as its plain version does, since its step decisions turn on rounding: no
+#: multiply-add contraction, IEEE division and square root.
+SOURCE_FLAGS = {
+    "seip_bs3.cu": ("-fmad=false", "-prec-div=true", "-prec-sqrt=true"),
+}
 
 
 def find_nvcc() -> str:
@@ -113,6 +123,8 @@ def build_key() -> str:
         h.update(path.read_bytes())
     h.update(tableau_header().encode())
     h.update(" ".join(NVCC_FLAGS).encode())
+    for name, flags in sorted(SOURCE_FLAGS.items()):
+        h.update(f"{name}: {' '.join(flags)}".encode())
     return h.hexdigest()[:16]
 
 
@@ -122,16 +134,26 @@ def nvcc_commands(nvcc: str, out: Path, include_dir: Path) -> tuple[list[list[st
     for src in sorted(SRC_DIR.glob("*.cu")):
         obj = out.parent / f"{src.stem}.o"
         objs.append(str(obj))
-        compiles.append([nvcc, *NVCC_FLAGS, "-c", "-I", str(include_dir), "-I", str(SRC_DIR),
-                         "-o", str(obj), str(src)])
+        compiles.append([nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-c",
+                         "-I", str(include_dir), "-I", str(SRC_DIR), "-o", str(obj), str(src)])
     return compiles, [nvcc, "-shared", "-o", str(out), *objs]
 
 
 def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
-    """Run the commands together; ``(command, return code, output)`` of each."""
+    """Run the commands together; ``(command, return code, output)`` of each,
+    the output ending with the command's wall time from the common start,
+    labelled with the file the command writes."""
+    start = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
-    outputs = [proc.communicate()[0] for proc in procs]
+
+    def finish(proc):
+        text = proc.communicate()[0]
+        target = Path(proc.args[proc.args.index("-o") + 1]).name
+        return text + f"wall time: {time.perf_counter() - start:.1f} s ({target})\n"
+
+    with ThreadPoolExecutor(max_workers=len(procs)) as pool:
+        outputs = list(pool.map(finish, procs))
     return [(cmd, proc.returncode, text) for cmd, proc, text in zip(cmds, procs, outputs)]
 
 
@@ -161,7 +183,8 @@ def load_library() -> ctypes.CDLL:
 
 
 def build_log() -> str:
-    """The nvcc output (ptxas registers and spills) of the loaded build."""
+    """The nvcc output of the loaded build: ptxas registers and spills, and
+    each command's wall time."""
     return (BUILD_ROOT / build_key() / "nvcc.log").read_text()
 
 
@@ -182,11 +205,30 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p,  # stream
     ]
     lib.dynode_multistrain_tsit5_2d.restype = i
+    d = ctypes.c_double
+    seip_head = [
+        i, i, i, i, i, i, i,  # A, J, K, M, L, seasonal, n_knots
+        p, p, p,  # consts (host float64), y0, scales
+        p, p, p, p,  # out_s, out_e, out_i, out_c (0 where not saved)
+    ]
+    lib.dynode_seip_rk4.argtypes = seip_head + [
+        i, i, i, d, i, i,  # bf16, packed, batch, dt, n_steps, save_stride
+        p,  # stream
+    ]
+    lib.dynode_seip_rk4.restype = i
+    lib.dynode_seip_bs3.argtypes = seip_head + [
+        p,  # flags
+        i, i, i, i, i,  # bf16, packed, batch, block_b, n_saves
+        d, d, d, d, i,  # save_every, rtol, atol, dt0, steps_per_save
+        p,  # stream
+    ]
+    lib.dynode_seip_bs3.restype = i
     return lib
 
 
 __all__ = [
     "NVCC_FLAGS",
+    "SOURCE_FLAGS",
     "build_key",
     "build_log",
     "find_nvcc",

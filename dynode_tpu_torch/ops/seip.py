@@ -1,0 +1,845 @@
+"""Whole-solve SEIP ensembles: two CUDA C++ kernels and their plain versions.
+
+Port of ``dynode_tpu/ops/seip_pallas.py``. The production SEIP state is 640
+floats per member (``S (A, J, K, M)``, ``E/I/C (A, J, K, L)`` at
+``(A, J, K, M, L) = (4, 4, 4, 4, 2)``); one initial state is shared by every
+member, and each member has its own transmission scales, ``(B,)`` (one for
+every strain) or ``(L, B)``.
+
+- :func:`seip_ensemble_solve` runs constant-step RK4. CPU tensors go to
+  :func:`seip_solve_reference`, CUDA tensors to ``csrc/seip_rk4.cu``.
+- :func:`seip_ensemble_solve_adaptive` runs Bogacki-Shampine 3(2) with one
+  dt per lockstep block of ``block_b`` members. CPU tensors go to
+  :func:`seip_solve_adaptive_reference`, CUDA tensors to ``csrc/seip_bs3.cu``.
+
+The plain versions compute the kernels' RHS, a transcription of the JAX
+kernel's ``_build_rhs`` (:func:`seip_kernel_rhs`): its expression order, its
+host-formed constants (``float(beta[l] / pop[a])``, ``mask * pop``, the
+escape table formed in float64 and then rounded) and its time scalars, with
+the sums over the member's structure taken in the order of the kernels' warp
+reductions (:func:`_halves`). ``models/seip.py::seip_ode_ensemble`` stays
+the model's RHS; the tests hold the two against each other.
+
+Saves come member-last, ``(T, *compartment, B)``, or with ``packed=True`` in
+the JAX kernel's member-tile layout ``(T, *compartment, 8, B // 8)``
+(:func:`pack_members`; ``B`` a multiple of 1,024), which the CUDA kernels
+write directly.
+
+The kernels are instantiated for the production shape
+:data:`INSTANTIATED` only; another shape on a CUDA tensor raises
+``ValueError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .. import _device
+from ..models.seip import SEIPParams
+from . import _build
+from .generic import _grid
+
+SUB, LANE = 8, 128
+BLOCK = SUB * LANE  # members per tile of the packed layout
+
+#: (A, J, K, M, L, seasonal) the CUDA kernels are compiled for
+INSTANTIATED = ((4, 4, 4, 4, 2, True),)
+#: most spline knots per (age, dose) the kernels take
+MAX_KNOTS = 4
+#: lockstep block widths the adaptive kernel is compiled for (warps per CTA):
+#: the default, and 8 and 16, which the CPU tests use (16 is one block of
+#: their 16 members, the JAX reference's single block). A sweep of a build
+#: with 1 to 32 (``chip_sweep.py seip`` on an H100 80GB HBM3 at 700 W; 200
+#: days, rtol 1e-4, atol 1e-3, C saves) gave 39.698 / 37.783 / 36.739 / 37.424 / 41.017 /
+#: 51.954 ms at B = 32,768 (f32) and 81.470 / 74.243 / 71.451 / 73.278 /
+#: 80.147 / 101.180 ms at B = 65,536 (bf16) for 1 / 2 / 4 / 8 / 16 / 32, with
+#: 237 attempts per member at every width: the members' step sizes barely
+#: differ, so the width moves the barrier and occupancy costs, not the work.
+#: 1 and 32 (32 spills), slower in every call and used by no caller, are not
+#: compiled.
+ADAPTIVE_BLOCKS = (4, 8, 16)
+#: members per lockstep block when the caller names none: the fastest above
+SEIP_ADAPTIVE_BLOCK = 4
+SAVE_DTYPES = (torch.float32, torch.bfloat16)
+_BS3_ERR_ORDER = 3.0
+
+
+# ---------------------------------------------------------------------------
+# layouts
+# ---------------------------------------------------------------------------
+
+
+def pack_members(x: torch.Tensor) -> torch.Tensor:
+    """``(..., B)`` member-last -> ``(..., 8, B // 8)`` tile layout: member
+    ``g = blk * 1024 + sub * 128 + lane`` goes to ``[..., sub, blk * 128 + lane]``."""
+    *lead, batch = x.shape
+    if batch % BLOCK:
+        raise ValueError(f"the packed layout needs a batch that is a multiple of {BLOCK}, got {batch}")
+    nb = batch // BLOCK
+    x = x.reshape(*lead, nb, SUB, LANE).movedim(-3, -2)  # (..., 8, nb, 128)
+    return x.reshape(*lead, SUB, nb * LANE)
+
+
+def unpack_members(x: torch.Tensor) -> torch.Tensor:
+    """``(..., 8, B // 8)`` tile layout -> ``(..., B)`` member-last."""
+    *lead, _, nl = x.shape
+    nb = nl // LANE
+    x = x.reshape(*lead, SUB, nb, LANE).movedim(-2, -3)  # (..., nb, 8, 128)
+    return x.reshape(*lead, nb * SUB * LANE)
+
+
+def _norm_scales(beta_scales, n_strains: int, dtype, device=None) -> torch.Tensor:
+    """``beta_scales`` as the ``(L, B)`` per-strain-per-member form: a
+    ``(B,)`` row is broadcast to every strain."""
+    s = torch.as_tensor(beta_scales, dtype=dtype, device=device)
+    if s.ndim == 1:
+        s = s[None, :].expand(n_strains, s.shape[0])
+    if s.ndim != 2 or s.shape[0] != n_strains:
+        raise ValueError(
+            f"beta_scales must be (B,) or (n_strains={n_strains}, B); got "
+            f"{tuple(torch.as_tensor(beta_scales).shape)}"
+        )
+    return s
+
+
+# ---------------------------------------------------------------------------
+# static parameters
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class SeipStatic:
+    """Host (float64) copies of the SEIP parameters the kernels bake in."""
+
+    dims: tuple  # (A, J, K, M, L)
+    seasonal: bool
+    escape: np.ndarray  # (L, J, K, M) susceptibility multiplier
+    eta_to: tuple  # (J, L) -> target history
+    beta: np.ndarray
+    sigma: np.ndarray
+    gamma: np.ndarray
+    contact: np.ndarray
+    pop: np.ndarray
+    season_amp: float
+    season_peak: float
+    intro_time: np.ndarray
+    intro_scale: np.ndarray
+    intro_perc: np.ndarray
+    intro_age_mask: np.ndarray
+    vax_knots: np.ndarray
+    vax_base_coeffs: np.ndarray
+    vax_knot_coeffs: np.ndarray
+    seasonal_vax_tau: float
+    omega: np.ndarray
+
+
+def _host(x) -> np.ndarray:
+    return torch.as_tensor(x).detach().to("cpu", torch.float64).numpy()
+
+
+def seip_static_params(p: SEIPParams) -> SeipStatic:
+    """Host-fetch ``p`` into the kernels' static parameters.
+
+    The escape table is formed in float64 (``models/seip.py``'s layered
+    immunity) and rounded where it is used. Recovery is routed by target
+    index, which equals the model's one-hot contraction only when
+    ``eta_onehot`` is strictly one-hot: anything else raises ``ValueError``.
+    """
+    chi, vax_eff = _host(p.chi), _host(p.vax_eff)
+    L, J = chi.shape
+    A = _host(p.pop).shape[0]
+    K = vax_eff.shape[1]
+    M = _host(p.omega).shape[0]
+    ii = 1.0 - (1.0 - chi[:, :, None]) * (1.0 - vax_eff[:, None, :])
+    wib = ii[..., None] * _host(p.base_protection)  # (L, J, K, M)
+    fi = (float(_host(p.min_homologous)) * _host(p.hist_mask))[:, :, None, None]
+    escape = 1.0 - (wib + (1.0 - wib) * fi)
+    eta = _host(p.eta_onehot)  # (J, L, J)
+    if not (np.all(np.isin(eta, (0.0, 1.0))) and np.all(eta.sum(axis=-1) == 1.0)):
+        raise ValueError("the SEIP kernels require a strictly one-hot eta_onehot transition")
+    eta_to = tuple(tuple(int(np.argmax(eta[j, l])) for l in range(L)) for j in range(J))
+    return SeipStatic(
+        dims=(A, J, K, M, L),
+        seasonal=bool(p.seasonal_vaccination),
+        escape=escape,
+        eta_to=eta_to,
+        beta=_host(p.beta),
+        sigma=_host(p.sigma),
+        gamma=_host(p.gamma),
+        contact=_host(p.contact),
+        pop=_host(p.pop),
+        season_amp=float(_host(p.season_amp)),
+        season_peak=float(_host(p.season_peak)),
+        intro_time=_host(p.intro_time),
+        intro_scale=_host(p.intro_scale),
+        intro_perc=_host(p.intro_perc),
+        intro_age_mask=_host(p.intro_age_mask),
+        vax_knots=_host(p.vax_knots),
+        vax_base_coeffs=_host(p.vax_base_coeffs),
+        vax_knot_coeffs=_host(p.vax_knot_coeffs),
+        seasonal_vax_tau=float(_host(p.seasonal_vax_tau)),
+        omega=_host(p.omega),
+    )
+
+
+def kernel_constants(P: SeipStatic) -> dict[str, np.ndarray]:
+    """The float64 constants of the kernels' RHS, formed on the host as the
+    JAX kernel forms them, in the order the C entry points read them."""
+    A, J, K, M, L = P.dims
+    return {
+        "contact": P.contact,
+        "lamc": P.beta[:, None] / P.pop[None, :],  # float(beta[l] / pop[a])
+        "sigma": P.sigma,
+        "gamma": P.gamma,
+        "pop": P.pop,
+        "season": np.array([P.season_amp, P.season_peak, P.seasonal_vax_tau]),
+        "intro_time": P.intro_time,
+        "intro_scale": P.intro_scale,
+        "intro_perc": P.intro_perc,
+        "intro_norm": P.intro_scale * math.sqrt(2.0 * math.pi),
+        "intro_mask": P.intro_age_mask,
+        "maskpop": P.intro_age_mask * P.pop[None, :],
+        "vax_base": P.vax_base_coeffs,
+        "vax_knots": P.vax_knots,
+        "vax_kcoef": P.vax_knot_coeffs,
+        "omega": P.omega,
+        "escape": P.escape,
+        "eta_to": np.asarray(P.eta_to, np.float64),
+    }
+
+
+class _Consts:
+    """The kernel constants as tensors of the working dtype on one device
+    (device tensors, so every operation rounds as on the card)."""
+
+    def __init__(self, P: SeipStatic, dtype, device):
+        self.P = P
+        self.dims = P.dims
+        self.dtype, self.device = dtype, device
+        for name, value in kernel_constants(P).items():
+            setattr(self, name, torch.as_tensor(value, dtype=dtype, device=device))
+        self.intro_on = [float(v) != 0.0 for v in P.intro_perc]
+        self.mask_on = [[float(v) != 0.0 for v in row] for row in P.intro_age_mask]
+        self.omega_on = [float(v) != 0.0 for v in P.omega]
+
+    def c(self, value: float) -> torch.Tensor:
+        """A Python float rounded to the working dtype, on the device."""
+        return torch.tensor(value, dtype=self.dtype, device=self.device)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' RHS, vectorised over members
+# ---------------------------------------------------------------------------
+
+
+def _halves(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum along ``dim`` by halves: the order of a warp's xor-butterfly
+    reduction with descending offsets (``v[i] + v[i + n/2]`` first)."""
+    while x.shape[dim] > 1:
+        n = x.shape[dim]
+        if n % 2:
+            return x.sum(dim)
+        x = x.narrow(dim, 0, n // 2) + x.narrow(dim, n // 2, n // 2)
+    return x.squeeze(dim)
+
+
+def _seq_sum(parts) -> torch.Tensor:
+    """Left-to-right sum of a sequence of tensors."""
+    it = iter(parts)
+    acc = next(it)
+    for x in it:
+        acc = acc + x
+    return acc
+
+
+def _lanes(x: torch.Tensor) -> torch.Tensor:
+    """``(A, J, K, X, B)`` -> ``(A, J * K/2, 2 * X, B)``: the kernels' lane
+    (age, history, dose pair) and its 2 * X values (K odd: one dose per lane)."""
+    A, J, K, X, B = x.shape
+    pair = 2 if K % 2 == 0 else 1
+    return x.reshape(A, J * (K // pair), pair * X, B)
+
+
+def _integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
+    """``x ** y`` by the square-and-multiply chain of ``jax.lax.integer_pow``."""
+    acc = None
+    while y > 0:
+        if y & 1:
+            acc = x if acc is None else acc * x
+        y >>= 1
+        if y > 0:
+            x = x * x
+    return acc
+
+
+def _time_scalars(C: _Consts, t: torch.Tensor):
+    """``(season, pulses, nu (A, K, T), phi)`` at times ``t`` (shape ``(T,)``)."""
+    amp, peak, tau = C.season[0], C.season[1], C.season[2]
+    two_pi = C.c(2.0 * math.pi)
+    season = C.c(1.0) + amp * torch.cos(two_pi * (t - peak) / C.c(365.0))
+    pulses = []
+    for l, on in enumerate(C.intro_on):
+        if on:
+            z = (t - C.intro_time[l]) / C.intro_scale[l]
+            pulses.append(C.intro_perc[l] * torch.exp(C.c(-0.5) * z * z) / C.intro_norm[l])
+        else:
+            pulses.append(None)
+    base = C.vax_base[..., None]  # (A, K, 4, 1)
+    v = base[:, :, 0] + base[:, :, 1] * t + base[:, :, 2] * t * t + base[:, :, 3] * t * t * t
+    zero = C.c(0.0)
+    for i in range(C.vax_knots.shape[-1]):
+        d = t - C.vax_knots[:, :, i, None]
+        v = v + C.vax_kcoef[:, :, i, None] * torch.where(d > zero, d * d * d, zero)
+    nu = torch.maximum(v, zero)
+    phi = None
+    if C.P.seasonal:
+        phi = _integer_pow(torch.sin(two_pi * (t + tau) / C.c(730.0)), 1000)
+    return season, pulses, nu, phi
+
+
+def seip_kernel_rhs(C: _Consts, y, t: torch.Tensor, scale: torch.Tensor):
+    """The kernels' SEIP RHS on member-last state, in the JAX kernel's order.
+
+    ``y``: ``S (A, J, K, M, B)``, ``E/I/C (A, J, K, L, B)``; ``t``: ``(1,)``
+    or one time per member ``(B,)``; ``scale``: ``(L, B)``. The sums over
+    the member's structure follow the kernels' lanes (:func:`_lanes`): a
+    lane's own values in order, then :func:`_halves` over lanes.
+    """
+    S, E, I, _ = y
+    A, J, K, M, L = C.dims
+    season, pulses, nu, phi = _time_scalars(C, t)
+
+    # ---- force of infection: sum_{j,k} I per (a, l), plus the pulse ----------
+    lanes_i = _lanes(I)  # (A, lanes, pair * L, B)
+    pair = lanes_i.shape[2] // L
+    part = _seq_sum(lanes_i[:, :, q * L:(q + 1) * L] for q in range(pair))
+    inf = _halves(part, 1)  # (A, L, B)
+    inf = [[inf[a, l] for l in range(L)] for a in range(A)]
+    for l in range(L):
+        if pulses[l] is not None:
+            for a in range(A):
+                if C.mask_on[l][a]:
+                    inf[a][l] = inf[a][l] + pulses[l] * C.maskpop[l, a]
+    lam = []
+    for a in range(A):
+        lam.append([
+            ((C.lamc[l, a] * season) * scale[l])
+            * _seq_sum(C.contact[a, b] * inf[b][l] for b in range(A))
+            for l in range(L)
+        ])
+    lam = torch.stack([torch.stack(row) for row in lam])  # (A, L, B)
+
+    # ---- S: infection out; E/I/C: the exposure chain ---------------------------
+    esc = C.escape  # (L, J, K, M)
+    coeff = _seq_sum(esc[l][None, ..., None] * lam[:, l, None, None, None, :] for l in range(L))
+    dS = -coeff * S  # (A, J, K, M, B)
+    dE, dI, dC = [], [], []
+    for l in range(L):
+        acc = _seq_sum(esc[l, :, :, m][None, ..., None] * S[:, :, :, m] for m in range(M))
+        ne = lam[:, l, None, None, :] * acc  # (A, J, K, B)
+        dE.append(ne - C.sigma[l] * E[:, :, :, l])
+        dC.append(ne)
+        dI.append(C.sigma[l] * E[:, :, :, l] - C.gamma[l] * I[:, :, :, l])
+    dE, dI, dC = (torch.stack(x, dim=3) for x in (dE, dI, dC))
+
+    # ---- recovery into immune history eta(j, l), waning bin 0 -------------------
+    for j in range(J):
+        for l in range(L):
+            h = C.P.eta_to[j][l]
+            dS[:, h, :, 0] = dS[:, h, :, 0] + C.gamma[l] * I[:, j, :, l]
+
+    # ---- vaccination uptake (saturated per dose tier) --------------------------
+    sbd = _halves(_seq_sum(S[:, :, :, m] for m in range(M)), 1)  # (A, K, B)
+    rate = torch.minimum(
+        (nu * C.pop[:, None, None]) / torch.maximum(sbd, C.c(1e-8)), C.c(1.0))
+    for kk in range(K):
+        r = rate[:, None, kk, None, :]  # (A, 1, 1, B)
+        if kk < K - 1:
+            out = r * S[:, :, kk]  # (A, J, M, B)
+            dS[:, :, kk] = dS[:, :, kk] - out
+            dS[:, :, kk + 1, 0] = dS[:, :, kk + 1, 0] + _seq_sum(out[:, :, m] for m in range(M))
+        else:
+            out = r * S[:, :, kk, 1:]
+            dS[:, :, kk, 1:] = dS[:, :, kk, 1:] - out
+            dS[:, :, kk, 0] = dS[:, :, kk, 0] + _seq_sum(out[:, :, m] for m in range(M - 1))
+
+    # ---- seasonal vaccination reset (top tier -> previous tier) ----------------
+    if phi is not None:
+        for X, dX in ((S, dS), (E, dE), (I, dI)):
+            shift = phi * X[:, :, K - 1]
+            dX[:, :, K - 2] = dX[:, :, K - 2] + shift
+            dX[:, :, K - 1] = dX[:, :, K - 1] - shift
+
+    # ---- waning chain m -> m + 1 ------------------------------------------------
+    for m in range(M - 1):
+        if C.omega_on[m]:
+            w = C.omega[m] * S[:, :, :, m]
+            dS[:, :, :, m] = dS[:, :, :, m] - w
+            dS[:, :, :, m + 1] = dS[:, :, :, m + 1] + w
+    return dS, dE, dI, dC
+
+
+# ---------------------------------------------------------------------------
+# the plain versions
+# ---------------------------------------------------------------------------
+
+
+def _check_save(save) -> tuple[int, ...]:
+    save = tuple(sorted(set(int(i) for i in save)))
+    if not save or not all(0 <= i < 4 for i in save):
+        raise ValueError(f"save must select compartments among 0..3 (S, E, I, C), got {save}")
+    return save
+
+
+def _seip_grid(duration: float, dt: float, save_every: float) -> tuple[int, int]:
+    """``(n_steps, save_stride)`` of the constant-step solve. On top of
+    ``generic._grid``'s checks, ``save_every`` must be a whole number of
+    ``dt`` steps: the JAX entry point rounds it and saves on another grid."""
+    stride = int(round(save_every / dt))
+    if stride < 1 or abs(stride * dt - save_every) > 1e-9 * max(1.0, save_every):
+        raise ValueError("save_every must be a whole number of dt steps")
+    return _grid(duration, dt, save_every)
+
+
+def _n_saves_adaptive(duration: float, save_every: float) -> int:
+    n_saves = int(round(duration / save_every)) + 1
+    if abs((n_saves - 1) * save_every - duration) > 1e-6 * max(duration, 1.0):
+        raise ValueError("duration must be a multiple of save_every")
+    if n_saves < 2:
+        raise ValueError("duration must cover at least one save interval")
+    return n_saves
+
+
+def _setup(y0, params, beta_scales, dtype):
+    """Static parameters, constants, member-last y0 and (L, B) scales."""
+    P = seip_static_params(params)
+    y0 = tuple(torch.as_tensor(c) for c in y0)
+    device = y0[0].device
+    dtype = dtype or y0[0].dtype
+    C = _Consts(P, dtype, device)
+    scales = _norm_scales(beta_scales, P.dims[-1], dtype, device)
+    batch = scales.shape[-1]
+    y = tuple(c.to(dtype)[..., None].expand(*c.shape, batch) for c in y0)
+    return P, C, y, scales
+
+
+def seip_solve_reference(
+    y0, params: SEIPParams, beta_scales, *, duration, dt=0.5, save_every=1.0,
+    save: Sequence[int] = (0, 1, 2, 3), dtype: torch.dtype | None = None,
+):
+    """The plain version of the constant-step kernel: RK4 on
+    :func:`seip_kernel_rhs` in the JAX kernel's stage order.
+
+    Step ``n`` starts at ``float(n) * float(dt)``; ``0.5 * dt``, ``dt`` and
+    ``dt / 6`` are Python doubles rounded once. Works in ``dtype`` (default:
+    the dtype of ``y0``) on the device of ``y0``. Returns the compartments in
+    ``save``, each ``(n_saves, *compartment, B)``.
+    """
+    save = _check_save(save)
+    n_steps, stride = _seip_grid(duration, dt, save_every)
+    _, C, y, scale = _setup(y0, params, beta_scales, dtype)
+    np_t = np.dtype(str(C.dtype).removeprefix("torch."))
+    times = np.arange(n_steps).astype(np_t) * np_t.type(dt)
+    t0 = torch.as_tensor(times, device=C.device)
+    t_half = t0 + C.c(0.5 * dt)
+    t_full = t0 + C.c(dt)
+    h2, h, h6, two = C.c(0.5 * dt), C.c(dt), C.c(dt / 6.0), C.c(2.0)
+    outs = [torch.empty((n_steps // stride + 1, *y[i].shape), dtype=C.dtype, device=C.device)
+            for i in save]
+    for o, i in zip(outs, save):
+        o[0] = y[i]
+    for step in range(n_steps):
+        sl = slice(step, step + 1)
+        k = seip_kernel_rhs(C, y, t0[sl], scale)
+        ac = k
+        st = tuple(a + h2 * b for a, b in zip(y, k))
+        k = seip_kernel_rhs(C, st, t_half[sl], scale)
+        ac = tuple(a + two * b for a, b in zip(ac, k))
+        st = tuple(a + h2 * b for a, b in zip(y, k))
+        k = seip_kernel_rhs(C, st, t_half[sl], scale)
+        ac = tuple(a + two * b for a, b in zip(ac, k))
+        st = tuple(a + h * b for a, b in zip(y, k))
+        k = seip_kernel_rhs(C, st, t_full[sl], scale)
+        ac = tuple(a + b for a, b in zip(ac, k))
+        y = tuple(a + h6 * b for a, b in zip(y, ac))
+        if (step + 1) % stride == 0:
+            for o, i in zip(outs, save):
+                o[(step + 1) // stride] = y[i]
+    return tuple(outs)
+
+
+def _member_norm(C: _Consts, err, y, y_new, atol, rtol) -> torch.Tensor:
+    """Each member's scaled RMS error, summed in the kernel's order: a
+    lane's 20 values one after another, then by halves over the 32 lanes."""
+    q = []
+    for e, a, b in zip(err, y, y_new):
+        r = e / (atol + rtol * torch.maximum(a.abs(), b.abs()))
+        q.append(_lanes(r * r))  # (A, lanes, values, B)
+    q = torch.cat(q, dim=2)
+    n_elems = sum(int(np.prod(c.shape[:-1])) for c in y)
+    sq = _seq_sum(q[:, :, i] for i in range(q.shape[2]))  # (A, lanes, B)
+    sq = _halves(sq.reshape(-1, sq.shape[-1]), 0)
+    return torch.sqrt(sq * C.c(1.0 / n_elems))
+
+
+def seip_solve_adaptive_reference(
+    y0, params: SEIPParams, beta_scales, *, duration, save_every=1.0, rtol=1e-4, atol=1e-3,
+    dt0=None, steps_per_save=8, block_b: int | None = None,
+    save: Sequence[int] = (0, 1, 2, 3), dtype: torch.dtype | None = None,
+):
+    """The plain version of the adaptive kernel: lockstep BS3(2) per block.
+
+    Members ``[i * block_b, (i + 1) * block_b)`` form block ``i``, with its
+    own ``(t, dt)`` chain driven by the max over its members of each
+    member's scaled RMS error (the last block may be short).
+    ``block_b=None`` is one block of the whole batch, the JAX reference's
+    single global block. It takes the kernel's decisions: the controller
+    ``clip(0.9 * exp(log(norm) * (-1/3)), 0.2, 10)``, exact landing on save
+    points, an accepted clamped step keeping its dt, the attempt budgets
+    (``max(4 * steps_per_save, 32)`` in the first interval), and FSAL: after
+    an accepted attempt the last stage ``f(t + dt, y_new)`` is the next
+    attempt's first, recomputed only after a rejection. Unreached intervals
+    save NaN.
+
+    Returns ``(outs, stats)``: the compartments in ``save`` as
+    ``(n_saves, *compartment, B)``, and per-block int32
+    ``exhausted_intervals``, ``n_accepted`` and ``n_rejected``.
+    """
+    save = _check_save(save)
+    n_saves = _n_saves_adaptive(duration, save_every)
+    _, C, y, scale = _setup(y0, params, beta_scales, dtype)
+    dev, batch = C.device, scale.shape[-1]
+    block_b = batch if block_b is None else int(block_b)
+    nb = -(-batch // block_b)
+    block_of = torch.arange(batch, device=dev) // block_b
+    k_first, k_rest = max(4 * int(steps_per_save), 32), int(steps_per_save)
+    dt0 = float(save_every / 8.0 if dt0 is None else dt0)
+    np_t = np.dtype(str(C.dtype).removeprefix("torch."))
+    se = np_t.type(save_every)
+    ends = torch.as_tensor(np.arange(n_saves).astype(np_t) * se, device=dev)
+    eps = C.c(1e-6 * max(float(save_every), 1.0))
+    atol_c, rtol_c = C.c(atol), C.c(rtol)
+    c29, c572, c49 = C.c(2.0 / 9.0), C.c(5.0 / 72.0), C.c(4.0 / 9.0)
+    half, three_q = C.c(0.5), C.c(0.75)
+    three, twelve, nine, eight = C.c(3.0), C.c(12.0), C.c(9.0), C.c(8.0)
+    tiny, nine_tenths, expo = C.c(1e-30), C.c(0.9), C.c(-1.0 / _BS3_ERR_ORDER)
+    lo, hi, one = C.c(0.2), C.c(10.0), C.c(1.0)
+    i32 = dict(dtype=torch.int32, device=dev)
+    t = torch.zeros(nb, dtype=C.dtype, device=dev)
+    dt = C.c(dt0).expand(nb).clone()
+    kv = torch.zeros(nb, dtype=torch.bool, device=dev)
+    na, nr, bad = (torch.zeros(nb, **i32) for _ in range(3))
+    k = tuple(torch.zeros_like(c) for c in y)
+
+    def per_member(v):  # (nb,) -> broadcastable against (..., B)
+        return v[block_of]
+
+    def block_max(norm_m):
+        padded = torch.zeros(nb * block_b, dtype=C.dtype, device=dev)
+        padded[:batch] = norm_m
+        return padded.reshape(nb, block_b).amax(dim=1)  # a NaN wins
+
+    outs = [torch.empty((n_saves, *y[i].shape), dtype=C.dtype, device=dev) for i in save]
+    for o, i in zip(outs, save):
+        o[0] = y[i]
+    nan = C.c(float("nan"))
+    for s in range(1, n_saves):
+        s_end = ends[s]
+        for _ in range(k_first if s == 1 else k_rest):
+            remaining = s_end - t
+            active = remaining > eps
+            if not bool(active.any()):
+                break
+            h = torch.minimum(dt, remaining)
+            landing = h >= remaining - eps
+            stale = per_member(active & ~kv)
+            if bool(stale.any()):
+                fresh = seip_kernel_rhs(C, y, per_member(t), scale)
+                k = tuple(torch.where(stale, f, o) for f, o in zip(fresh, k))
+            hm = per_member(h)
+            tm = per_member(t)
+            ac = tuple(a + (hm * c29) * b for a, b in zip(y, k))
+            er = tuple((hm * c572) * b for b in k)
+            st = tuple(a + (half * hm) * b for a, b in zip(y, k))
+            k2 = seip_kernel_rhs(C, st, tm + half * hm, scale)
+            ac = tuple(a + (hm / three) * b for a, b in zip(ac, k2))
+            er = tuple(a - (hm / twelve) * b for a, b in zip(er, k2))
+            st = tuple(a + (three_q * hm) * b for a, b in zip(y, k2))
+            k3 = seip_kernel_rhs(C, st, tm + three_q * hm, scale)
+            ac = tuple(a + (hm * c49) * b for a, b in zip(ac, k3))
+            er = tuple(a - (hm / nine) * b for a, b in zip(er, k3))
+            k4 = seip_kernel_rhs(C, ac, tm + hm, scale)
+            er = tuple(a + (hm / eight) * b for a, b in zip(er, k4))
+            norm = block_max(_member_norm(C, er, y, ac, atol_c, rtol_c))
+            ok = torch.isfinite(norm)
+            safe = torch.maximum(norm, tiny)
+            factor = torch.clamp(nine_tenths * torch.exp(torch.log(safe) * expo), lo, hi)
+            factor = torch.where(ok, factor, lo)
+            good = ok & (norm <= one)
+            acc = active & good
+            dt_new = torch.where(landing & good, dt, h * factor)
+            dt = torch.where(active, dt_new, dt)
+            acc_m, active_m = per_member(acc), per_member(active)
+            y = tuple(torch.where(acc_m, a, o) for a, o in zip(ac, y))
+            k = tuple(torch.where(active_m, a, o) for a, o in zip(k4, k))
+            t = torch.where(acc, torch.where(landing, s_end, t + h), t)
+            kv = torch.where(active, acc, kv)
+            na = na + acc.to(torch.int32)
+            nr = nr + (active & ~acc).to(torch.int32)
+        reached = t >= s_end - eps
+        bad = bad + (~reached).to(torch.int32)
+        reached_m = per_member(reached)
+        for o, i in zip(outs, save):
+            o[s] = torch.where(reached_m, y[i], nan)
+    stats = {"exhausted_intervals": bad, "n_accepted": na, "n_rejected": nr}
+    return tuple(outs), stats
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+
+def _check_instantiated(P: SeipStatic) -> None:
+    shape = (*P.dims, P.seasonal)
+    if shape not in INSTANTIATED:
+        raise ValueError(
+            f"the SEIP kernels are instantiated for (A, J, K, M, L, seasonal) in "
+            f"{INSTANTIATED}, not {shape}")
+    if P.vax_knots.shape[-1] > MAX_KNOTS:
+        raise ValueError(f"the SEIP kernels take at most {MAX_KNOTS} spline knots, "
+                         f"got {P.vax_knots.shape[-1]}")
+
+
+def _comp_shapes(dims) -> list[tuple[int, ...]]:
+    A, J, K, M, L = dims
+    return [(A, J, K, M), (A, J, K, L), (A, J, K, L), (A, J, K, L)]
+
+
+def _kernel_inputs(y0, P: SeipStatic, scales: torch.Tensor, device):
+    """``(y0 flat (640,) f32, scales (L, B) f32, constants (n,) f64 host)``."""
+    flat = torch.cat([torch.as_tensor(c).reshape(-1) for c in y0])
+    y0_flat = flat.to(device=device, dtype=torch.float32).contiguous()
+    consts = np.ascontiguousarray(np.concatenate(
+        [np.asarray(v, np.float64).reshape(-1) for v in kernel_constants(P).values()]))
+    return y0_flat, scales.to(torch.float32).contiguous(), consts
+
+
+def _outputs(P: SeipStatic, save, n_saves, batch, save_dtype, packed, device):
+    """Saves in the layout the kernel writes; pointers for the C ABI (0 where
+    a compartment is not saved)."""
+    outs, ptrs = [], [0, 0, 0, 0]
+    for i in save:
+        shape = (n_saves, *_comp_shapes(P.dims)[i])
+        shape += (SUB, batch // SUB) if packed else (batch,)
+        o = torch.empty(shape, dtype=save_dtype, device=device)
+        outs.append(o)
+        ptrs[i] = o.data_ptr()
+    return tuple(outs), ptrs
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def launch_seip_rk4(
+    y0, P: SeipStatic, scales: torch.Tensor, *, dt: float, n_steps: int, save_stride: int,
+    save: tuple[int, ...], save_dtype: torch.dtype, packed: bool,
+):
+    """Launch ``csrc/seip_rk4.cu``: ``y0`` the shared initial state,
+    ``scales`` ``(L, B)`` on a CUDA device. Returns the saved compartments.
+
+    Adds one to ``launch_seip_rk4.launches`` per launch.
+    """
+    _check_instantiated(P)
+    device = _device.require_hopper(scales.device)
+    batch = scales.shape[-1]
+    y0_flat, scales, consts = _kernel_inputs(y0, P, scales, device)
+    outs, ptrs = _outputs(P, save, n_steps // save_stride + 1, batch, save_dtype, packed, device)
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        rc = lib.dynode_seip_rk4(
+            *P.dims, int(P.seasonal), P.vax_knots.shape[-1], _ptr(consts),
+            y0_flat.data_ptr(), scales.data_ptr(), *ptrs,
+            int(save_dtype == torch.bfloat16), int(packed), batch, float(dt), n_steps,
+            save_stride, torch.cuda.current_stream(device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"seip_rk4 kernel launch failed: CUDA error {rc}")
+    launch_seip_rk4.launches += 1
+    return outs
+
+
+launch_seip_rk4.launches = 0
+
+
+def launch_seip_bs3(
+    y0, P: SeipStatic, scales: torch.Tensor, *, n_saves: int, save_every: float, rtol: float,
+    atol: float, dt0: float, steps_per_save: int, block_b: int, save: tuple[int, ...],
+    save_dtype: torch.dtype, packed: bool,
+):
+    """Launch ``csrc/seip_bs3.cu`` (one CTA of ``block_b`` warps per lockstep
+    block). Returns ``(saved compartments, flags (nb, 3) int32)`` with the
+    columns exhausted, accepted, rejected.
+
+    Adds one to ``launch_seip_bs3.launches`` per launch.
+    """
+    _check_instantiated(P)
+    if block_b not in ADAPTIVE_BLOCKS:
+        raise ValueError(f"block_b must be one of {ADAPTIVE_BLOCKS}, got {block_b}")
+    device = _device.require_hopper(scales.device)
+    batch = scales.shape[-1]
+    y0_flat, scales, consts = _kernel_inputs(y0, P, scales, device)
+    outs, ptrs = _outputs(P, save, n_saves, batch, save_dtype, packed, device)
+    flags = torch.empty((-(-batch // block_b), 3), dtype=torch.int32, device=device)
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        rc = lib.dynode_seip_bs3(
+            *P.dims, int(P.seasonal), P.vax_knots.shape[-1], _ptr(consts),
+            y0_flat.data_ptr(), scales.data_ptr(), *ptrs, flags.data_ptr(),
+            int(save_dtype == torch.bfloat16), int(packed), batch, block_b, n_saves,
+            float(save_every), float(rtol), float(atol), float(dt0), int(steps_per_save),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"seip_bs3 kernel launch failed: CUDA error {rc}")
+    launch_seip_bs3.launches += 1
+    return outs, flags
+
+
+launch_seip_bs3.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+
+def _entry_setup(y0, params, beta_scales, save, save_dtype, packed):
+    save = _check_save(save)
+    if save_dtype not in SAVE_DTYPES:
+        raise ValueError(f"save_dtype must be one of {SAVE_DTYPES}, got {save_dtype}")
+    y0 = tuple(torch.as_tensor(c) for c in y0)
+    scales = torch.as_tensor(beta_scales)
+    device = _device.common_device(*y0, scales, params.beta)
+    batch = int(scales.shape[-1])
+    if packed and batch % BLOCK:
+        raise ValueError(f"packed=True needs a batch that is a multiple of {BLOCK}, got {batch}")
+    return save, y0, scales, device
+
+
+def _finish(outs, save_dtype, packed):
+    outs = tuple(o.to(save_dtype) for o in outs)
+    return tuple(pack_members(o) for o in outs) if packed else outs
+
+
+def seip_ensemble_solve(
+    y0,
+    params: SEIPParams,
+    beta_scales,
+    *,
+    duration: float,
+    dt: float = 0.5,
+    save_every: float = 1.0,
+    save: Sequence[int] = (0, 1, 2, 3),
+    save_dtype: torch.dtype = torch.float32,
+    packed: bool = False,
+):
+    """Solve a B-wide SEIP ensemble with constant-step RK4.
+
+    ``y0``: the shared ``(S, E, I, C)``; ``beta_scales``: ``(B,)`` or
+    ``(L, B)`` per-member transmission scales. Returns the compartments in
+    ``save`` (ascending indices into ``(S, E, I, C)``), each
+    ``(T, *compartment, B)``, or ``(T, *compartment, 8, B // 8)`` with
+    ``packed=True`` (``B`` a multiple of 1,024). The state is float32;
+    ``save_dtype=torch.bfloat16`` rounds only the saves. ``duration`` must
+    be a multiple of ``save_every`` and that of ``dt``. CPU tensors run
+    :func:`seip_solve_reference`, CUDA tensors ``csrc/seip_rk4.cu``.
+    """
+    save, y0, scales, device = _entry_setup(y0, params, beta_scales, save, save_dtype, packed)
+    n_steps, stride = _seip_grid(duration, dt, save_every)
+    if not _device.uses_kernel(device):
+        outs = seip_solve_reference(
+            y0, params, scales, duration=duration, dt=dt, save_every=save_every, save=save,
+            dtype=torch.float32)
+        return _finish(outs, save_dtype, packed)
+    P = seip_static_params(params)
+    return launch_seip_rk4(
+        y0, P, _norm_scales(scales, P.dims[-1], torch.float32, device), dt=float(dt),
+        n_steps=n_steps, save_stride=stride, save=save, save_dtype=save_dtype, packed=packed)
+
+
+def seip_ensemble_solve_adaptive(
+    y0,
+    params: SEIPParams,
+    beta_scales,
+    *,
+    duration: float,
+    save_every: float = 1.0,
+    rtol: float = 1e-4,
+    atol: float = 1e-3,
+    dt0: float | None = None,
+    steps_per_save: int = 8,
+    save: Sequence[int] = (0, 1, 2, 3),
+    save_dtype: torch.dtype = torch.float32,
+    packed: bool = False,
+    block_b: int | None = None,
+):
+    """Adaptive (lockstep-dt) SEIP ensemble: Bogacki-Shampine 3(2).
+
+    One dt per block of ``block_b`` members (default
+    :data:`SEIP_ADAPTIVE_BLOCK`; one of :data:`ADAPTIVE_BLOCKS`, checked on
+    every device), driven by the block's max of each member's scaled RMS
+    error; see :func:`seip_solve_adaptive_reference` for the controller.
+    ``atol`` defaults to 1e-3, scaled for ~1e3-sized compartments. Saves as
+    in :func:`seip_ensemble_solve`; NaN for intervals whose attempt budget
+    ran out. Returns ``(outs, stats)`` with per-block int32
+    ``exhausted_intervals`` (nonzero: raise ``steps_per_save``),
+    ``n_accepted`` and ``n_rejected``. CPU tensors run the plain version,
+    CUDA tensors ``csrc/seip_bs3.cu``.
+    """
+    save, y0, scales, device = _entry_setup(y0, params, beta_scales, save, save_dtype, packed)
+    n_saves = _n_saves_adaptive(duration, save_every)
+    block_b = SEIP_ADAPTIVE_BLOCK if block_b is None else int(block_b)
+    if block_b not in ADAPTIVE_BLOCKS:
+        raise ValueError(f"block_b must be one of {ADAPTIVE_BLOCKS} (a power of two), got {block_b}")
+    dt0 = float(save_every / 8.0 if dt0 is None else dt0)
+    kw = dict(save_every=float(save_every), rtol=float(rtol), atol=float(atol), dt0=dt0,
+              steps_per_save=int(steps_per_save))
+    if not _device.uses_kernel(device):
+        outs, stats = seip_solve_adaptive_reference(
+            y0, params, scales, duration=duration, block_b=block_b, save=save,
+            dtype=torch.float32, **kw)
+        return _finish(outs, save_dtype, packed), stats
+    P = seip_static_params(params)
+    outs, flags = launch_seip_bs3(
+        y0, P, _norm_scales(scales, P.dims[-1], torch.float32, device), n_saves=n_saves,
+        block_b=block_b, save=save, save_dtype=save_dtype, packed=packed, **kw)
+    stats = {"exhausted_intervals": flags[:, 0], "n_accepted": flags[:, 1],
+             "n_rejected": flags[:, 2]}
+    return outs, stats
+
+
+__all__ = [
+    "ADAPTIVE_BLOCKS",
+    "BLOCK",
+    "INSTANTIATED",
+    "SEIP_ADAPTIVE_BLOCK",
+    "SeipStatic",
+    "launch_seip_bs3",
+    "launch_seip_rk4",
+    "pack_members",
+    "seip_ensemble_solve",
+    "seip_ensemble_solve_adaptive",
+    "seip_kernel_rhs",
+    "seip_solve_adaptive_reference",
+    "seip_solve_reference",
+    "seip_static_params",
+    "unpack_members",
+]

@@ -209,3 +209,69 @@ def test_constructors_default_to_the_card(cuda):
     assert convert.params_from_numpy(
         {k: np.ones(3) for k in ("beta", "sigma", "gamma", "omega", "contact_matrix")}).beta.is_cuda
     assert all(x.is_cuda for x in convert.state_from_numpy((np.ones(2),) + (np.ones((2, 3)),) * 4))
+
+
+def _seip_inputs(dev, n, per_strain=False):
+    from dynode_tpu_torch.models import seip as seip_model
+
+    params = seip_model.seip_default_params(True)
+    y0 = seip_model.seip_initial_state(True)
+    rng = np.random.default_rng(11)
+    scales = rng.uniform(0.85, 1.2, (2, n) if per_strain else n)
+    return params, y0, torch.as_tensor(scales, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_strain", [False, True])
+def test_seip_rk4_kernel_matches_plain_version(cuda, per_strain):
+    """B = 2,047 (a ragged last CTA), 60 days at dt = 0.5, every compartment
+    in float32; then bf16 C saves in the packed layout at B = 2,048 (one
+    bf16 rounding of values that agree to 1e-5: tolerance 1e-2)."""
+    from dynode_tpu_torch.ops import seip as tsp
+
+    params, y0, scales = _seip_inputs(cuda, 2047, per_strain)
+    before = tsp.launch_seip_rk4.launches
+    got = tsp.seip_ensemble_solve(y0, params, scales, duration=60.0)
+    assert tsp.launch_seip_rk4.launches == before + 1
+    want = tsp.seip_solve_reference(y0, params, scales, duration=60.0)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all() and _rel(g, w) <= TOL
+    params, y0, scales = _seip_inputs(cuda, 2048, per_strain)
+    (c16,) = tsp.seip_ensemble_solve(y0, params, scales, duration=60.0, save=(3,),
+                                     save_dtype=torch.bfloat16, packed=True)
+    (c32,) = tsp.seip_solve_reference(y0, params, scales, duration=60.0, save=(3,))
+    assert c16.dtype == torch.bfloat16 and c16.shape == c32.shape[:-1] + (8, 256)
+    assert _rel(tsp.unpack_members(c16), c32) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_seip_bs3_kernel_matches_plain_version(cuda):
+    """B = 2,047, 60 days, rtol 1e-4, atol 1e-3, the same block width on
+    both sides: at least 99% of the blocks take the plain version's
+    decisions and agree with it to 1e-5, every block to 1e-3."""
+    from dynode_tpu_torch.ops import seip as tsp
+
+    params, y0, scales = _seip_inputs(cuda, 2047)
+    kw = dict(duration=60.0, rtol=1e-4, atol=1e-3, save=(3,))
+    before = tsp.launch_seip_bs3.launches
+    (got,), stats = tsp.seip_ensemble_solve_adaptive(y0, params, scales, **kw)
+    assert tsp.launch_seip_bs3.launches == before + 1
+    (want,), want_stats = tsp.seip_solve_adaptive_reference(
+        y0, params, scales, block_b=tsp.SEIP_ADAPTIVE_BLOCK, **kw)
+    same = torch.ones_like(stats["n_accepted"], dtype=torch.bool)
+    for key in stats:
+        same &= stats[key] == want_stats[key]
+    rel = _block_rel(got.flatten(1, -2), want.flatten(1, -2), tsp.SEIP_ADAPTIVE_BLOCK)
+    assert int(stats["exhausted_intervals"].sum()) == 0
+    assert float(same.float().mean()) >= 0.99
+    assert float(rel[same].max()) <= TOL and float(rel.max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_seip_constructors_default_to_the_card(cuda):
+    from dynode_tpu_torch import convert
+    from dynode_tpu_torch.models import seip as seip_model
+
+    assert seip_model.seip_default_params(True).beta.is_cuda
+    assert all(x.is_cuda for x in seip_model.seip_initial_state(True))
+    assert all(x.is_cuda for x in convert.seip_state_from_numpy((np.ones((4, 4, 4, 4)),) * 4))

@@ -10,11 +10,15 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import dynode_tpu.ops.multistrain_pallas as jmp
+import dynode_tpu.ops.seip_pallas as jsp
+from dynode_tpu.config import SolverParams
+from dynode_tpu.models import seip as jseip
 from dynode_tpu.models.multistrain import (
     multistrain_config,
     multistrain_initial_state,
@@ -24,6 +28,7 @@ import dynode_tpu_torch
 from dynode_tpu_torch import _device
 from dynode_tpu_torch.ops import _build
 from dynode_tpu_torch.ops import multistrain as tms
+from dynode_tpu_torch.ops import seip as tseip
 
 REPO = Path(__file__).resolve().parents[2]
 
@@ -66,6 +71,48 @@ def test_slice_matches_jax_path():
         return np.percentile(np.argmax(np.diff(c.sum(axis=(2, 3)), axis=0), axis=0), [5, 50, 95])
 
     np.testing.assert_array_equal(peak_days(got[4]), peak_days(want[4]))
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_seip_slice_matches_jax_path(adaptive):
+    """The path of ``bench_seip.py``: the production SEIP configuration
+    (seasonal vaccination), Uniform(0.85, 1.2) transmission scales, the
+    cumulative incidence C saved daily, B = 16 over 60 days, constant-step
+    RK4 at dt = 0.5 or the adaptive BS3 at rtol 1e-4, atol 1e-3 (one lockstep
+    block, ``block_b = B``).
+
+    The JAX entry points on the CPU run their float64 references; the port
+    runs float32. Tolerance: max |diff| <= 5e-6 * max |JAX| (float32 rounding
+    over 120 steps, measured 6e-7 over 80); the adaptive statistics and the
+    daily-incidence peak days must be equal.
+    """
+    B = 16
+    scales = np.random.default_rng(12).uniform(0.85, 1.2, B)
+    cfg = jseip.seip_config(seasonal_vaccination=True,
+                            solver_params=SolverParams(constant_step_size=0.5))
+    jp, jy = jseip.seip_odeparams(cfg), jseip.seip_initial_state(cfg)
+    params = dynode_tpu_torch.seip_default_params(True, device="cpu")
+    y0 = dynode_tpu_torch.seip_initial_state(True, device="cpu")
+    tscales = torch.as_tensor(scales, dtype=torch.float32)
+    if adaptive:
+        kw = dict(duration=60.0, rtol=1e-4, atol=1e-3, save=(3,))
+        (want,), wstats = jsp.seip_ensemble_solve_adaptive(jy, jp, jnp.asarray(scales), **kw)
+        (got,), stats = dynode_tpu_torch.seip_ensemble_solve_adaptive(y0, params, tscales,
+                                                                     block_b=B, **kw)
+        for key in wstats:
+            np.testing.assert_array_equal(stats[key].numpy(), np.asarray(wstats[key]))
+    else:
+        kw = dict(duration=60.0, dt=0.5, save=(3,))
+        (want,) = jsp.seip_ensemble_solve(jy, jp, jnp.asarray(scales), **kw)
+        (got,) = dynode_tpu_torch.seip_ensemble_solve(y0, params, tscales, **kw)
+    want = np.asarray(want)
+    assert got.shape == want.shape == (61, 4, 4, 4, 2, B) and got.dtype == torch.float32
+    assert np.max(np.abs(got.numpy() - want)) <= 5e-6 * np.max(np.abs(want))
+
+    def peak_days(c):
+        return np.argmax(np.diff(c.sum(axis=(1, 2, 3, 4)), axis=0), axis=0)
+
+    np.testing.assert_array_equal(peak_days(got.numpy()), peak_days(want))
 
 
 def test_import_leaves_jax_out():
@@ -136,6 +183,15 @@ def test_build_command_targets_sm90a(tmp_path):
         for flag in ("-gencode arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-c",
                      "-Xcompiler -fPIC", f"-I {tmp_path / 'inc'}"):
             assert flag in joined
+    # the adaptive SEIP kernel rounds as its plain version: no contraction,
+    # IEEE division and square root; the other sources keep the defaults
+    for cmd in compiles:
+        per_source = ("-fmad=false", "-prec-div=true", "-prec-sqrt=true")
+        if cmd[-1].endswith("seip_bs3.cu"):
+            assert all(flag in cmd for flag in per_source)
+        else:
+            assert not any(flag in cmd for flag in per_source)
+    assert _build.SOURCE_FLAGS["seip_bs3.cu"] == per_source
     objs = [str(tmp_path / f"{p.stem}.o") for p in sources]
     assert link == ["cuda/bin/nvcc", "-shared", "-o", str(tmp_path / "lib.so"), *objs]
     for path in sources:
@@ -164,10 +220,21 @@ def test_generated_header_is_the_tsit5_tableau():
 
 
 def test_kernel_instantiations_match_the_source():
-    """The shapes the wrapper accepts are the ones the .cu instantiates."""
+    """The shapes the wrappers accept are the ones the .cu files instantiate,
+    and every C entry point the wrappers call is defined in a source."""
     src = (_build.SRC_DIR / "multistrain_tsit5.cu").read_text()
     for a, k in tms.INSTANTIATED:
         assert f"launch<{a}, {k}>" in src
+    rk4 = (_build.SRC_DIR / "seip_rk4.cu").read_text()
+    bs3 = (_build.SRC_DIR / "seip_bs3.cu").read_text()
+    for A, J, K, M, L, seasonal in tseip.INSTANTIATED:
+        shape = f"{A}, {J}, {K}, {M}, {L}, {str(seasonal).lower()}"
+        assert f"launch<{shape}>" in rk4
+        for block_b in tseip.ADAPTIVE_BLOCKS:
+            assert f"case {block_b}:" in bs3 and f"launch<{shape}, {block_b}>" in bs3
+    assert f"kMaxKnots = {tseip.MAX_KNOTS};" in (_build.SRC_DIR / "seip_rhs.cuh").read_text()
+    for name, text in (("dynode_seip_rk4", rk4), ("dynode_seip_bs3", bs3)):
+        assert f'extern "C" int {name}(' in text
 
 
 @pytest.mark.parametrize(
@@ -178,8 +245,15 @@ def test_kernel_instantiations_match_the_source():
         lambda: dynode_tpu_torch.convert.params_from_numpy(
             {k: np.ones(3) for k in ("beta", "sigma", "gamma", "omega", "contact_matrix")}),
         lambda: dynode_tpu_torch.convert.state_from_numpy((np.ones(2),) + (np.ones((2, 3)),) * 4),
+        lambda: dynode_tpu_torch.seip_default_params(True),
+        lambda: dynode_tpu_torch.seip_initial_state(True),
+        lambda: dynode_tpu_torch.convert.seip_params_from_numpy(
+            {**{k: np.ones(2) for k in ("beta", "sigma", "gamma")}, "seasonal_vaccination": False}),
+        lambda: dynode_tpu_torch.convert.seip_state_from_numpy((np.ones((4, 4, 3, 4)),) * 4),
     ],
-    ids=["default_params", "initial_state", "params_from_numpy", "state_from_numpy"],
+    ids=["default_params", "initial_state", "params_from_numpy", "state_from_numpy",
+         "seip_default_params", "seip_initial_state", "seip_params_from_numpy",
+         "seip_state_from_numpy"],
 )
 def test_constructors_default_to_the_card(make, monkeypatch):
     """With no device a constructor puts its tensors on the card; on a box
