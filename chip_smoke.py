@@ -41,7 +41,8 @@ compile per CUDA source, all started together; Triton's JIT), then:
    versions;
 10. holds the two SEIP kernels (the production SEIP model of
     ``bench_seip.py``, 640 floats per member) against their plain versions:
-    RK4 at 4,096 and 4,095 members, BS3 at the same widths with the per-block
+    the RK4 kernel's time table bit for bit, RK4 at 4,096 and 4,095 members
+    (a ragged last CTA), BS3 at the same widths with the per-block
     gate of phase 6, every compartment in float32 over 200 days, bf16 saves,
     per-age mass conservation, the attempt budget, and BS3 against RK4 at
     dt = 0.05 on 1,024 members;
@@ -51,10 +52,13 @@ compile per CUDA source, all started together; Triton's JIT), then:
     checks finiteness, zero exhausted intervals and that both kernels
     launched;
 12. times the SEIP entry points, kernels and plain versions and holds the
-    C-only main path against the plain versions; then prints each kernel's
+    C-only main path against the plain versions; prints the SEIP kernels'
+    registers and spills (ptxas) and static SASS instruction mix
+    (``cuobjdump``, where the toolkit has it); then prints each kernel's
     work, counted from the plain versions' operations on this run's inputs
     (and, for the adaptive kernels, their statistics), and its bound on the
-    card.
+    card, and the RK4 kernel with all four compartments saved in bf16 beside
+    its own bound.
 
 The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -731,6 +735,12 @@ def main() -> int:
         if tol_same == TOL_F32:
             errors["seip_bs3"].append(float(block_abs[same].max()))
 
+    n_steps_seip = int(round(DAYS / DT))
+    P = tsp.seip_static_params(sp)
+    table = tsp.launch_seip_time_table(P, dt=DT, n_steps=n_steps_seip, device=dev)
+    same = torch.equal(table, tsp.seip_time_table_reference(P, dt=DT, n_steps=n_steps_seip, device=dev))
+    print(f"  seip_rk4 time table {tuple(table.shape)}: equal to its plain version bit for bit: {same}")
+    check(same, "the SEIP time table differs from its plain version")
     want_rk4 = tsp.seip_solve_reference(sy, sp, seip_scales, duration=DAYS, dt=DT)
     for b in (SLICE, RAGGED):
         got = tsp.seip_ensemble_solve(sy, sp, seip_scales[:b], duration=DAYS, dt=DT)
@@ -789,6 +799,7 @@ def main() -> int:
     c_kw = dict(save=(3,), packed=True)
     torch.cuda.synchronize()
     tsp.launch_seip_rk4.launches = 0
+    tsp.launch_seip_time_table.launches = 0
     tsp.launch_seip_bs3.launches = 0
     (c_rk4,) = tsp.seip_ensemble_solve(sy, sp, main_scales, duration=DAYS, dt=DT, save=(3,))
     full4 = tsp.seip_ensemble_solve(sy, sp, main_scales, duration=DAYS, dt=DT,
@@ -798,9 +809,11 @@ def main() -> int:
         sy, sp, wide_scales, save_dtype=torch.bfloat16, **seip_kw, **c_kw)
     torch.cuda.synchronize()
     launches.update(seip_rk4=tsp.launch_seip_rk4.launches, seip_bs3=tsp.launch_seip_bs3.launches)
-    print(f"  launches in the SEIP main path: { {k: launches[k] for k in ('seip_rk4', 'seip_bs3')} }")
-    check(launches["seip_rk4"] > 0 and launches["seip_bs3"] > 0,
-          f"a SEIP kernel of the path did not launch: {launches}")
+    table_launches = tsp.launch_seip_time_table.launches
+    print(f"  launches in the SEIP main path: { {k: launches[k] for k in ('seip_rk4', 'seip_bs3')} }, "
+          f"the RK4 kernel's time table {table_launches}")
+    check(launches["seip_rk4"] > 0 and launches["seip_bs3"] > 0 and table_launches > 0,
+          f"a SEIP kernel of the path did not launch: {launches}, time table {table_launches}")
     n_days = int(DAYS) + 1
     check(tuple(c_rk4.shape) == (n_days, 4, 4, 4, 2, SEIP_WIDE), f"SEIP C saves {tuple(c_rk4.shape)}")
     check(tuple(full4[0].shape) == (n_days, 4, 4, 4, 4, 8, SEIP_WIDE // 8), "SEIP packed S saves")
@@ -852,8 +865,6 @@ def main() -> int:
     del plain, c_bs3, c_wide
     times["seip_rk4"] = (seip_ms["rk4_c"], p_rk4, SEIP_WIDE)
     times["seip_bs3"] = (seip_ms["bs3_wide"], p_bs3, 2 * SEIP_WIDE)
-    P = tsp.seip_static_params(sp)
-    n_steps_seip = int(round(DAYS / DT))
     device_ms["seip_rk4"] = event_ms(lambda: tsp.launch_seip_rk4(
         sy, P, tsp._norm_scales(main_scales, 2, torch.float32, dev), dt=DT, n_steps=n_steps_seip,
         save_stride=int(round(1.0 / DT)), save=(3,), save_dtype=torch.float32, packed=False))
@@ -865,8 +876,19 @@ def main() -> int:
     rk4_ends_ms = event_ms(lambda: tsp.launch_seip_rk4(
         sy, P, tsp._norm_scales(main_scales, 2, torch.float32, dev), dt=DT, n_steps=n_steps_seip,
         save_stride=n_steps_seip, save=(3,), save_dtype=torch.float32, packed=False))
+    full4_ms = event_ms(lambda: tsp.launch_seip_rk4(
+        sy, P, tsp._norm_scales(main_scales, 2, torch.float32, dev), dt=DT, n_steps=n_steps_seip,
+        save_stride=int(round(1.0 / DT)), save=(0, 1, 2, 3), save_dtype=torch.bfloat16, packed=True))
     print(f"  seip_rk4 B={SEIP_WIDE}: kernel alone {rk4_ends_ms:.3f} ms saving only t = 0 and "
-          f"t = {DAYS:.0f} (CUDA events), against {device_ms['seip_rk4']:.3f} ms with daily C saves [{smi}]")
+          f"t = {DAYS:.0f}, {device_ms['seip_rk4']:.3f} ms with daily C saves (f32), {full4_ms:.3f} ms "
+          f"with all four compartments daily (bf16, packed) (CUDA events) [{smi}]")
+    resources = _build.ptxas_resources(_build.build_log())
+    sass = _build.sass_counts(_build.library_path())
+    chosen = {f"seip_rk4_kernel<{tsp.RK4_WIDTH}>", "seip_time_table_kernel",
+              f"seip_bs3_kernel<{tsp.SEIP_ADAPTIVE_BLOCK}>"}
+    for name in sorted(k for k in resources if k.startswith("seip_")):
+        mix = "not available (no cuobjdump beside nvcc)" if sass is None else sass.get(name)
+        print(f"  {name}{' (main path)' if name in chosen else ''}: {resources[name]}; static SASS {mix}")
     for name, what in (("rk4_c", f"seip_rk4 B={SEIP_WIDE}, C f32"),
                        ("rk4_full4", f"seip_rk4 B={SEIP_WIDE}, all four bf16 packed"),
                        ("bs3_c", f"seip_bs3 B={SEIP_WIDE}, C f32 packed"),
@@ -878,45 +900,68 @@ def main() -> int:
               f"plain {p_ms_:.1f} ms ({b / p_ms_ * 1e3:,.0f} traj/s) [{smi}]")
     print(f"  seip_bs3 B={SEIP_WIDE}, C f32: plain {p_bs3_c:.1f} ms [{smi}]")
 
-    # work of the SEIP kernels, counted from the plain versions' operations
+    # work of the SEIP kernels, counted from the plain versions' operations at
+    # one and at two members: the difference is a member's work, the rest is
+    # shared by the members that share a time (the time scalars and products of
+    # them): every member in RK4, whose table kernel computes them once per
+    # stage time, a lockstep block in BS3
     cpu_p = seip_model.seip_default_params(True, device="cpu")
     cpu_y = seip_model.seip_initial_state(True, device="cpu")
-    one = torch.ones(1)
-    step_ops = count_ops(lambda: tsp.seip_solve_reference(cpu_y, cpu_p, one, duration=DT, dt=DT,
-                                                          save_every=DT))
+
+    def by_member(run, exclude=frozenset()):
+        """(operations per member, operations shared) of ``run(b)`` on b members."""
+        one, two = count_ops(lambda: run(1), exclude), count_ops(lambda: run(2), exclude)
+        return two - one, 2 * one - two
+
+    step_m, step_s = by_member(lambda b: tsp.seip_solve_reference(
+        cpu_y, cpu_p, torch.ones(b), duration=DT, dt=DT, save_every=DT))
     cpu_consts = tsp._Consts(tsp.seip_static_params(cpu_p), torch.float32, torch.device("cpu"))
-    one_rhs = lambda: tsp.seip_kernel_rhs(cpu_consts, seip_model.seip_ensemble_state(cpu_y, 1),
-                                          torch.zeros(1), torch.ones(2, 1))
-    rhs_ops = count_ops(one_rhs)
+
+    def one_rhs(b):
+        return tsp.seip_kernel_rhs(cpu_consts, seip_model.seip_ensemble_state(cpu_y, b),
+                                   torch.zeros(1), torch.ones(2, b))
+
+    rhs_m, rhs_s = by_member(one_rhs)
     probe = {}
 
-    def one_day():
-        _, probe["s"] = tsp.seip_solve_adaptive_reference(cpu_y, cpu_p, one, duration=2.0, **{
+    def one_day(b):  # identical members: one block takes the decisions of one member
+        _, probe["s"] = tsp.seip_solve_adaptive_reference(cpu_y, cpu_p, torch.ones(b), duration=2.0, **{
             k: v for k, v in seip_kw.items() if k != "duration"})
 
     # The plain version keeps or drops a whole attempt with selects over the
     # state (y, k, the NaN saves); the kernel branches on the block's decision
-    # instead, so outside the RHS those selects are not work.
+    # instead, so outside the RHS those selects are not work. It also gives
+    # each member its own time, so its RHS calls count their time scalars per
+    # member: those come off, and the block's three stage times count instead.
     no_select = {"where"}
-    day_ops = count_ops(one_day, exclude=no_select)
-    rhs_arith = count_ops(one_rhs, exclude=no_select)
+    day_m, day_s = by_member(one_day, exclude=no_select)
+    arith_m, arith_s = by_member(one_rhs, exclude=no_select)
     ps = probe["s"]
     a1, r1 = int(ps["n_accepted"][0] + ps["n_rejected"][0]), int(ps["n_rejected"][0])
-    attempt_ops = (day_ops - rhs_arith * (3 * a1 + r1 + 1)) / a1 + 3 * rhs_ops
-    print(f"  SEIP work per member, counted from the plain versions: RHS {rhs_ops:,} operations, "
-          f"RK4 step {step_ops:,}, BS3 attempt {attempt_ops:,.0f} (plus one RHS after each rejection; "
-          f"no selects over the state)")
+    attempt_m = (day_m - (arith_m + arith_s) * (3 * a1 + r1 + 1)) / a1 + 3 * rhs_m
+    attempt_s = day_s / a1 + 3 * rhs_s
+    print(f"  SEIP work counted from the plain versions, per member (+ shared by a time's members): "
+          f"RHS {rhs_m:,} (+{rhs_s:,}) operations, RK4 step {step_m:,} (+{step_s:,}), BS3 attempt "
+          f"{attempt_m:,.0f} (+{attempt_s:,.0f} per block; plus one RHS after each rejection; no "
+          f"selects over the state)")
     stats_w = wide_stats
     att_w = (stats_w["n_accepted"] + stats_w["n_rejected"]).long().cpu()
     rej_w = stats_w["n_rejected"].long().cpu()
     bb = tsp.SEIP_ADAPTIVE_BLOCK
     members = torch.full_like(att_w, bb)
     members[-1] = 2 * SEIP_WIDE - bb * (len(att_w) - 1)
-    bs3_flops = int((members * (att_w * attempt_ops + (rej_w + 1) * rhs_ops)).sum())
+    bs3_flops = int((members * (att_w * attempt_m + (rej_w + 1) * rhs_m)
+                     + att_w * attempt_s + (rej_w + 1) * rhs_s).sum())
     seip_in = 4 * 640 + 8 * 295  # shared y0 and the float64 constants
+    rk4_flops = n_steps_seip * (SEIP_WIDE * step_m + step_s)
+    full4_bytes = seip_in + 4 * 2 * SEIP_WIDE + 2 * n_days * 640 * SEIP_WIDE
+    full4_bound = max(rk4_flops / PEAK_F32_FLOPS, full4_bytes / PEAK_BYTES) * 1e3
+    print(f"  seip_rk4 all four bf16: {rk4_flops / 1e9:.2f} GFLOP ({rk4_flops / PEAK_F32_FLOPS * 1e3:.4f} ms), "
+          f"{full4_bytes / 1e9:.2f} GB of saves and inputs ({full4_bytes / PEAK_BYTES * 1e3:.4f} ms) -> "
+          f"bound {full4_bound:.4f} ms; kernel {full4_ms:.3f} ms ({full4_bound / full4_ms:.1%} of the bound) "
+          f"[{smi}]")
     seip_work = {
-        "seip_rk4": (n_steps_seip * SEIP_WIDE * step_ops,
-                     seip_in + 4 * 2 * SEIP_WIDE + 4 * n_days * 128 * SEIP_WIDE),
+        "seip_rk4": (rk4_flops, seip_in + 4 * 2 * SEIP_WIDE + 4 * n_days * 128 * SEIP_WIDE),
         "seip_bs3": (bs3_flops, seip_in + 4 * 2 * 2 * SEIP_WIDE + 2 * n_days * 128 * 2 * SEIP_WIDE
                      + 12 * len(att_w)),
     }
@@ -970,6 +1015,8 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": None, "batch": times[name][2],
             "kernel_event_ms": device_ms[name],
         })
+    kernels[list(meta).index("seip_rk4")].update(
+        time_table_launches=table_launches, full4_event_ms=full4_ms, full4_bound_ms=full4_bound)
     print(f"chip_smoke: {time.perf_counter() - t_start:.0f} s from start to the result")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

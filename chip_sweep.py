@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Block-width sweeps of the port's adaptive kernels, and the two multi-strain
-kernels in turns, on one H100.
+"""Block-width sweeps of the port's adaptive kernels, the two multi-strain
+kernels in turns, and the SEIP kernels' widths, on one H100.
 
-    python3 chip_sweep.py          # everything
-    python3 chip_sweep.py seip     # the SEIP block-width sweep only
+    python3 chip_sweep.py        # everything
+    python3 chip_sweep.py seip   # the SEIP part only
 
 Run from the root of a checkout on a machine with one CUDA card of compute
 capability 9.0. It solves the two adaptive main paths of ``chip_smoke.py`` --
@@ -18,13 +18,19 @@ width changes the work as well as the parallelism. Then it times the row
 kernel (``csrc/multistrain_tsit5.cu``) and the 2-D kernel
 (``csrc/multistrain_tsit5_2d.cu``) at the main path's B = 9,984 in turns
 (row, 2-D, 2-D, row; five rounds; CUDA events over 5 launches each) and
-prints each one's median. Last, it sweeps the SEIP adaptive kernel
-(``csrc/seip_bs3.cu``) over the lockstep widths it is compiled for on the
-SEIP main path of ``chip_smoke.py`` (``bench_seip.py``'s production
-configuration, 200 days, rtol 1e-4, atol 1e-3, C saved in the packed
-layout): B = 32,768 in float32 and B = 65,536 in bf16, with the same
-timing and statistics. It imports no JAX and exits non-zero without a
-card.
+prints each one's median. Last, on the SEIP main path of ``chip_smoke.py``
+(``bench_seip.py``'s production configuration, 200 days, scales
+Uniform(0.85, 1.2)), it times the RK4 kernel (``csrc/seip_rk4.cu``, dt =
+0.5, B = 32,768) with C saved in float32 at t = 0 and t = 200 only, then
+daily, and with all four compartments daily in bf16, packed (the
+differences are what the saves cost), with its registers and spills; and
+the adaptive kernel (``csrc/seip_bs3.cu``) at every lockstep width it is
+compiled for (rtol 1e-4, atol 1e-3, C saved in the packed layout): B =
+32,768 in float32 and B = 65,536 in bf16, with its statistics. The RK4
+kernel is compiled for one CTA width (``RK4_WIDTH``); to sweep others,
+instantiate them in ``csrc/seip_rk4.cu`` for the run.
+
+It imports no JAX and exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -115,37 +121,57 @@ def main() -> int:
         "2-D": lambda: ms.launch_multistrain_tsit5_2d(y_2d, p_2d, contact, **grid),
     }
 
-    def event_ms(fn, reps=5) -> float:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
     for fn in kernels.values():
         fn()  # build and warm up
     times = {name: [] for name in kernels}
     for _ in range(5):
         for name in ("row", "2-D", "2-D", "row"):
-            times[name].append(event_ms(kernels[name]))
+            times[name].append(_event_ms(kernels[name]))
     for name, ts in times.items():
         print(f"multi-strain {name} kernel, B={n}, {DAYS:.0f} days: median {statistics.median(ts):.3f} ms "
               f"of {len(ts)} (min {min(ts):.3f}, max {max(ts):.3f}), in turns [{smi}]")
     return seip_sweep(dev, smi)
 
 
+def _event_ms(fn, reps=5) -> float:
+    """Device time of one call: CUDA events around ``reps`` calls after one."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def seip_sweep(dev, smi) -> int:
-    """The SEIP adaptive kernel at every lockstep width it is compiled for."""
+    """The SEIP RK4 kernel's save costs and the adaptive kernel's widths."""
     import torch
 
     from dynode_tpu_torch.models import seip as seip_model
+    from dynode_tpu_torch.ops import _build
     from dynode_tpu_torch.ops import seip as tsp
 
     params = seip_model.seip_default_params(True, device=dev)
     y0 = seip_model.seip_initial_state(True, device=dev)
+    P = tsp.seip_static_params(params)
+    scales = torch.as_tensor(np.random.default_rng(2).uniform(0.85, 1.2, (2, 32768)),
+                             dtype=torch.float32, device=dev)
+    kw = dict(dt=0.5, n_steps=400)
+    ends_ms = _event_ms(lambda: tsp.launch_seip_rk4(y0, P, scales, save=(3,), save_dtype=torch.float32,
+                                                    packed=False, save_stride=400, **kw))
+    c_ms = _event_ms(lambda: tsp.launch_seip_rk4(y0, P, scales, save=(3,), save_dtype=torch.float32,
+                                                 packed=False, save_stride=2, **kw))
+    full4_ms = _event_ms(lambda: tsp.launch_seip_rk4(y0, P, scales, save=(0, 1, 2, 3),
+                                                     save_dtype=torch.bfloat16, packed=True,
+                                                     save_stride=2, **kw))
+    resources = _build.ptxas_resources(_build.build_log())
+    print(f"SEIP RK4 B=32768 width {tsp.RK4_WIDTH}: C saved at the ends only {ends_ms:.3f} ms, daily "
+          f"C f32 {c_ms:.3f} ms, daily all four bf16 packed {full4_ms:.3f} ms (CUDA events, 5 "
+          f"launches); {resources.get(f'seip_rk4_kernel<{tsp.RK4_WIDTH}>', {})} [{smi}]")
     for batch, save_dtype in ((32768, torch.float32), (65536, torch.bfloat16)):
         scales = torch.as_tensor(np.random.default_rng(2).uniform(0.85, 1.2, batch),
                                  dtype=torch.float32, device=dev)
@@ -172,7 +198,8 @@ def seip_sweep(dev, smi) -> int:
             print(f"SEIP B={batch} C {str(save_dtype).removeprefix('torch.')} block_b {block_b:2d}: "
                   f"{t:.3f} ms ({batch / t * 1e3:,.0f} traj/s), {attempts} attempts in {n_blocks} "
                   f"blocks ({attempts / n_blocks:.1f} per block), rejected {rejected}, "
-                  f"exhausted {int(stats['exhausted_intervals'].sum())} [{smi}]")
+                  f"exhausted {int(stats['exhausted_intervals'].sum())}, "
+                  f"{resources.get(f'seip_bs3_kernel<{block_b}>', {})} [{smi}]")
     return 0
 
 

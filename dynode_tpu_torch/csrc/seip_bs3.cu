@@ -25,16 +25,23 @@
 // stage input, stage derivative, candidate, error) are 100 registers a lane; a block
 // is BLOCK_B warps (at most 32 in a CTA, so the TPU's 1,024-member block cannot be one
 // CTA; the lockstep block is narrower: 4, 8 or 16 warps, 4 by default, which a
-// chip_sweep.py sweep over 1 to 32 found fastest). The
+// chip_sweep.py sweep found fastest). The
 // block max is two steps: a warp reduction for each member's sum of squares, then a
 // shared-memory reduction over the block's warps after one barrier (double-buffered,
 // so one barrier per attempt is enough); every thread then takes the same scalar
 // (t, dt) decision. Warps past the batch shadow the last member, join every barrier
 // and shuffle, and are left out of the max and the saves.
 //
+// Time scalars: the block shares (t, h), so the attempt's four stage times t,
+// t + h/2, t + 3h/4 and t + h are known when it starts. Each warp computes their time
+// rows in one pass at the start of the attempt -- a lane takes nu(a, k) of two
+// stages, lanes 0-15 one head value (season, a pulse or phi) of one stage -- into
+// its own shared slot, then __syncwarp; no RHS call computes one. Saves go straight
+// from a lane's registers: only C is saved on the main path.
+//
 // What bounds it on the H100: float32 operations, counted by chip_smoke.py from the
 // attempt statistics (three RHS per attempt, one more after each rejection, about
-// 5.5k operations each per member).
+// 5.4k operations each per member, and the time scalars once per block).
 
 #include <cuda_runtime.h>
 
@@ -77,13 +84,40 @@ __device__ __forceinline__ float lane_sq(const Lane<M, L>& er, const Lane<M, L>&
   return sq;
 }
 
+// The time rows of the attempt's stage times t0 .. t3 into this warp's slot: lane
+// computes nu(a, k) = row value kHead + (lane & 15) of stages lane / 16 and lane / 16 + 2,
+// lanes 0-15 also head value lane & 3 of stage lane / 4; then the warp synchronises.
+template <int A, int J, int K, int M, int L, bool SEASONAL>
+__device__ __forceinline__ void time_rows(const Consts<A, J, K, M, L>& c, float t0, float t1,
+                                          float t2, float t3, float (*tr)[TimeLayout<A, K, L>::kRow],
+                                          int lane) {
+  using T = TimeLayout<A, K, L>;
+  static_assert(A * K == 16 && T::kHead == 4, "a half warp per stage's nu, a quarter warp per head");
+  const int hi = lane >> 4, i = T::kHead + (lane & 15);
+  tr[hi][i] = time_value<A, J, K, M, L, SEASONAL>(c, hi ? t1 : t0, i);
+  tr[hi + 2][i] = time_value<A, J, K, M, L, SEASONAL>(c, hi ? t3 : t2, i);
+  if (lane < 16) {
+    const int s = lane >> 2;
+    const float ts = s == 0 ? t0 : (s == 1 ? t1 : (s == 2 ? t2 : t3));
+    tr[s][lane & 3] = time_value<A, J, K, M, L, SEASONAL>(c, ts, lane & 3);
+  }
+  __syncwarp();
+}
+
+// __launch_bounds__ asks for 16 warps per SM at every width: at most 128 registers a
+// thread. Without the CTA count ptxas takes 168 registers at block_b 4 (12 warps per
+// SM, no spill), and 20 or 24 warps per SM cap it at 96 or 80 (244 or 436 bytes of
+// spill stores): all three ran slower (chip_smoke.py prints the registers and spills).
 template <int A, int J, int K, int M, int L, bool SEASONAL, int BLOCK_B>
-__global__ void __launch_bounds__(32 * BLOCK_B)
+__global__ void __launch_bounds__(32 * BLOCK_B, 16 / BLOCK_B)
 seip_bs3_kernel(const __grid_constant__ Consts<A, J, K, M, L> cp, const float* __restrict__ y0,
                 const float* __restrict__ scales, Outs outs, int* __restrict__ flags, int batch,
                 int n_saves, float save_every, float eps, float atol, float rtol, float dt0,
                 int steps_per_save) {
+  using T = TimeLayout<A, K, L>;
   __shared__ Consts<A, J, K, M, L> c;
+  __shared__ WarpSlab<A, L> slabs[BLOCK_B];
+  __shared__ __align__(16) float rows[BLOCK_B][4][T::kRow];  // the attempt's four time rows
   __shared__ float norms[2][BLOCK_B];
   __shared__ int not_finite[2][BLOCK_B];
   load_consts(c, cp);
@@ -92,6 +126,9 @@ seip_bs3_kernel(const __grid_constant__ Consts<A, J, K, M, L> cp, const float* _
   const bool live = g < batch;
   const int member = live ? g : batch - 1;
   const Where<A, J, K> w(static_cast<int>(threadIdx.x % 32));
+  const Routes routes = lane_routes(c, w);
+  WarpSlab<A, L>& slab = slabs[warp];
+  float(*tr)[T::kRow] = rows[warp];
   const size_t pos = member_pos(member, batch, outs.packed);
   float scale[L];
 #pragma unroll
@@ -119,19 +156,20 @@ seip_bs3_kernel(const __grid_constant__ Consts<A, J, K, M, L> cp, const float* _
       if (!(remaining > eps)) break;
       const float h = fminf(dt, remaining);
       const bool landing = h >= remaining - eps;
-      if (!kv) rhs<A, J, K, M, L, SEASONAL>(k, y, t, scale, c, w);
       const float h05 = 0.5f * h, h075 = 0.75f * h;
+      time_rows<A, J, K, M, L, SEASONAL>(c, t, t + h05, t + h075, t + h, tr, w.lane);
+      if (!kv) rhs<A, J, K, M, L, SEASONAL>(k, y, lane_time<A, J, K, L>(tr[0], w), scale, c, routes, slab, w);
       axpy(ac, y, h * c29, k);
       scaled(er, h * c572, k);
       axpy(st, y, h05, k);
-      rhs<A, J, K, M, L, SEASONAL>(k, st, t + h05, scale, c, w);
+      rhs<A, J, K, M, L, SEASONAL>(k, st, lane_time<A, J, K, L>(tr[1], w), scale, c, routes, slab, w);
       axpy(ac, ac, h / 3.0f, k);
       axpy(er, er, -(h / 12.0f), k);
       axpy(st, y, h075, k);
-      rhs<A, J, K, M, L, SEASONAL>(k, st, t + h075, scale, c, w);
+      rhs<A, J, K, M, L, SEASONAL>(k, st, lane_time<A, J, K, L>(tr[2], w), scale, c, routes, slab, w);
       axpy(ac, ac, h * c49, k);
       axpy(er, er, -(h / 9.0f), k);
-      rhs<A, J, K, M, L, SEASONAL>(k, ac, t + h, scale, c, w);
+      rhs<A, J, K, M, L, SEASONAL>(k, ac, lane_time<A, J, K, L>(tr[3], w), scale, c, routes, slab, w);
       axpy(er, er, h / 8.0f, k);
 
       float sq = lane_sq(er, y, ac, atol, rtol);
@@ -205,9 +243,7 @@ extern "C" int dynode_seip_bs3(int A, int J, int K, int M, int L, int seasonal, 
                                int bf16, int packed, int batch, int block_b, int n_saves,
                                double save_every, double rtol, double atol, double dt0,
                                int steps_per_save, void* stream) {
-  if (!(A == 4 && J == 4 && K == 4 && M == 4 && L == 2 && seasonal && n_knots <= kMaxKnots)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!production(A, J, K, M, L, seasonal, n_knots)) return static_cast<int>(cudaErrorInvalidValue);
   const Outs outs{{out_s, out_e, out_i, out_c}, bf16, packed};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto c = read_consts<4, 4, 4, 4, 2>(consts, n_knots);

@@ -22,10 +22,12 @@ coefficients are the Python floats of the tableau, never retyped.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -160,8 +162,8 @@ def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernels' shared library."""
-    build_dir = BUILD_ROOT / build_key()
-    lib_path = build_dir / LIB_NAME
+    lib_path = library_path()
+    build_dir = lib_path.parent
     if not lib_path.is_file():
         include_dir = build_dir / "include"
         include_dir.mkdir(parents=True, exist_ok=True)
@@ -188,6 +190,84 @@ def build_log() -> str:
     return (BUILD_ROOT / build_key() / "nvcc.log").read_text()
 
 
+def library_path() -> Path:
+    """Where :func:`load_library` keeps the library of the current sources."""
+    return BUILD_ROOT / build_key() / LIB_NAME
+
+
+_TEMPLATE_ARG = re.compile(r"L[ib](\d+)E")
+
+
+def kernel_label(mangled: str) -> str:
+    """``seip_bs3_kernel<4>`` for a mangled SEIP kernel name: the kernel and
+    its template arguments after the six of the model's shape; the name as it
+    is for any other symbol."""
+    m = re.search(r"\d+(seip_\w+?_kernel)I((?:L[ib]\d+E)+)", mangled)
+    if not m:
+        return mangled
+    extra = _TEMPLATE_ARG.findall(m.group(2))[6:]
+    return f"{m.group(1)}<{','.join(extra)}>" if extra else m.group(1)
+
+
+def ptxas_resources(log: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes of every kernel in an nvcc log (``-Xptxas
+    -v``), by :func:`kernel_label`."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = kernel_label(m.group(1))
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+_SASS_LINE = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+_FP32 = ("FADD", "FMUL", "FFMA", "FMNMX")
+
+
+def sass_counts(lib: Path) -> dict[str, dict[str, int]] | None:
+    """:func:`sass_mix` of ``cuobjdump -sass lib`` (the cuobjdump beside
+    nvcc); None where cuobjdump is missing."""
+    try:
+        tool = Path(find_nvcc()).with_name("cuobjdump")
+    except RuntimeError:
+        return None
+    if not tool.is_file():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    return sass_mix(text)
+
+
+def sass_mix(text: str) -> dict[str, dict[str, int]]:
+    """Static instruction mix of each SEIP kernel in a ``cuobjdump -sass``
+    listing: float32 arithmetic (FADD, FMUL, FFMA,
+    FMNMX), MUFU in all and by function, SHFL, LDS, STS, LDG, STG, local
+    loads and stores, barriers and the total, by :func:`kernel_label`."""
+    out, counts = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts = out.setdefault(kernel_label(name), collections.Counter()) if "seip_" in name else None
+        elif counts is not None and (m := _SASS_LINE.match(line)):
+            op = m.group(1)
+            base = op.split(".")[0]
+            counts["total"] += 1
+            if base in _FP32:
+                counts["FP32"] += 1
+            elif base == "MUFU":
+                counts["MUFU"] += 1
+                counts[op] += 1
+            elif base in ("SHFL", "LDS", "STS", "LDG", "STG", "BAR", "WARPSYNC"):
+                counts[base] += 1
+            elif base in ("LDL", "STL"):
+                counts["LDL/STL"] += 1
+    return {name: dict(c) for name, c in out.items()}
+
+
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Argument and return types of every C entry point."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -211,7 +291,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p,  # consts (host float64), y0, scales
         p, p, p, p,  # out_s, out_e, out_i, out_c (0 where not saved)
     ]
-    lib.dynode_seip_rk4.argtypes = seip_head + [
+    lib.dynode_seip_time_table.argtypes = seip_head[:8] + [
+        d, i, p,  # dt, n_steps, table
+        p,  # stream
+    ]
+    lib.dynode_seip_time_table.restype = i
+    lib.dynode_seip_rk4.argtypes = seip_head[:8] + [
+        p, p, p,  # table, y0, scales
+        p, p, p, p,  # out_s, out_e, out_i, out_c (0 where not saved)
         i, i, i, d, i, i,  # bf16, packed, batch, dt, n_steps, save_stride
         p,  # stream
     ]
@@ -232,7 +319,12 @@ __all__ = [
     "build_key",
     "build_log",
     "find_nvcc",
+    "kernel_label",
+    "library_path",
     "load_library",
     "nvcc_commands",
+    "ptxas_resources",
+    "sass_counts",
+    "sass_mix",
     "tableau_header",
 ]

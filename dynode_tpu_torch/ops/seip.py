@@ -7,7 +7,10 @@ member, and each member has its own transmission scales, ``(B,)`` (one for
 every strain) or ``(L, B)``.
 
 - :func:`seip_ensemble_solve` runs constant-step RK4. CPU tensors go to
-  :func:`seip_solve_reference`, CUDA tensors to ``csrc/seip_rk4.cu``.
+  :func:`seip_solve_reference`, CUDA tensors to ``csrc/seip_rk4.cu``, which
+  first writes the time scalars of every stage time into a table
+  (:func:`launch_seip_time_table`; plain version
+  :func:`seip_time_table_reference`).
 - :func:`seip_ensemble_solve_adaptive` runs Bogacki-Shampine 3(2) with one
   dt per lockstep block of ``block_b`` members. CPU tensors go to
   :func:`seip_solve_adaptive_reference`, CUDA tensors to ``csrc/seip_bs3.cu``.
@@ -64,6 +67,20 @@ MAX_KNOTS = 4
 #: 1 and 32 (32 spills), slower in every call and used by no caller, are not
 #: compiled.
 ADAPTIVE_BLOCKS = (4, 8, 16)
+#: members (warps) per CTA of the RK4 kernel, the one width it is compiled
+#: for (``kWidth`` in ``csrc/seip_rk4.cu``), 16 warps per SM (at most 128
+#: registers a thread): it writes whole 32-byte sectors of bf16 rows, and
+#: float32 saves, which take no barrier, hardly care. A sweep of widths 4 /
+#: 8 / 16 on an H100 80GB HBM3 at 700 W (B = 32,768, 200 days, dt = 0.5)
+#: took 25.614 / 25.772 / 25.614 ms with C saved at the end points only,
+#: 30.045 / 30.558 / 30.298 ms with C daily in float32 and 54.143 / 47.898 /
+#: 35.569 ms with all four compartments daily in bf16; 20 and 24 warps per
+#: SM (width 4; 96 and 80 registers, 244 and 472 bytes of spill stores) took
+#: 32.870 and 52.547 ms against 28.820 ms with C saved.
+RK4_WIDTH = 16
+#: floats per time row: season, a pulse per strain, phi, then nu (a, k)
+TIME_HEAD = 4
+
 #: members per lockstep block when the caller names none: the fastest above
 SEIP_ADAPTIVE_BLOCK = 4
 SAVE_DTYPES = (torch.float32, torch.bfloat16)
@@ -303,6 +320,38 @@ def _time_scalars(C: _Consts, t: torch.Tensor):
     return season, pulses, nu, phi
 
 
+def rk4_stage_times(dt: float, n_steps: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """``(n_steps, 3)``: the stage times of RK4 step ``n`` as the kernel forms
+    them in ``dtype``: ``float(n) * float(dt)``, then ``+ float(0.5 * dt)``
+    and ``+ float(dt)``, each operation rounded once (``t_n + dt`` is not
+    always ``float(n + 1) * dt``)."""
+    np_t = np.dtype(str(dtype).removeprefix("torch."))
+    t0 = np.arange(n_steps).astype(np_t) * np_t.type(dt)
+    stages = np.stack([t0, t0 + np_t.type(0.5 * dt), t0 + np_t.type(dt)], axis=1)
+    return torch.as_tensor(stages, device=device)
+
+
+def _time_rows(C: _Consts, t: torch.Tensor) -> torch.Tensor:
+    """``(T, TIME_HEAD + A * K)``: the time rows of the kernels at times
+    ``t`` (``(T,)``): season, the pulse of each strain (0 where it has no
+    introduction), phi (0 without seasonal vaccination), then ``nu[a, k]``."""
+    A, J, K, M, L = C.dims
+    if 2 + L != TIME_HEAD:
+        raise ValueError(f"a time row holds season, {TIME_HEAD - 2} pulses and phi; got L = {L}")
+    season, pulses, nu, phi = _time_scalars(C, t)
+    zero = torch.zeros_like(t)
+    head = [season, *(zero if p is None else p for p in pulses), zero if phi is None else phi]
+    return torch.cat([torch.stack(head, dim=1), nu.reshape(A * K, -1).T], dim=1)
+
+
+def seip_time_table_reference(P: SeipStatic, *, dt: float, n_steps: int, device) -> torch.Tensor:
+    """The plain version of ``csrc/seip_rk4.cu``'s table kernel:
+    ``(3 * n_steps, TIME_HEAD + A * K)`` float32, the time rows of the stage
+    times of :func:`rk4_stage_times`, step by step."""
+    C = _Consts(P, torch.float32, torch.device(device))
+    return _time_rows(C, rk4_stage_times(dt, n_steps, device=C.device).reshape(-1))
+
+
 def seip_kernel_rhs(C: _Consts, y, t: torch.Tensor, scale: torch.Tensor):
     """The kernels' SEIP RHS on member-last state, in the JAX kernel's order.
 
@@ -444,11 +493,7 @@ def seip_solve_reference(
     save = _check_save(save)
     n_steps, stride = _seip_grid(duration, dt, save_every)
     _, C, y, scale = _setup(y0, params, beta_scales, dtype)
-    np_t = np.dtype(str(C.dtype).removeprefix("torch."))
-    times = np.arange(n_steps).astype(np_t) * np_t.type(dt)
-    t0 = torch.as_tensor(times, device=C.device)
-    t_half = t0 + C.c(0.5 * dt)
-    t_full = t0 + C.c(dt)
+    t0, t_half, t_full = rk4_stage_times(dt, n_steps, C.dtype, C.device).unbind(1)
     h2, h, h6, two = C.c(0.5 * dt), C.c(dt), C.c(dt / 6.0), C.c(2.0)
     outs = [torch.empty((n_steps // stride + 1, *y[i].shape), dtype=C.dtype, device=C.device)
             for i in save]
@@ -626,9 +671,13 @@ def _kernel_inputs(y0, P: SeipStatic, scales: torch.Tensor, device):
     """``(y0 flat (640,) f32, scales (L, B) f32, constants (n,) f64 host)``."""
     flat = torch.cat([torch.as_tensor(c).reshape(-1) for c in y0])
     y0_flat = flat.to(device=device, dtype=torch.float32).contiguous()
-    consts = np.ascontiguousarray(np.concatenate(
+    return y0_flat, scales.to(torch.float32).contiguous(), _host_constants(P)
+
+
+def _host_constants(P: SeipStatic) -> np.ndarray:
+    """The constants the C entry points read, float64, in one array."""
+    return np.ascontiguousarray(np.concatenate(
         [np.asarray(v, np.float64).reshape(-1) for v in kernel_constants(P).values()]))
-    return y0_flat, scales.to(torch.float32).contiguous(), consts
 
 
 def _outputs(P: SeipStatic, save, n_saves, batch, save_dtype, packed, device):
@@ -648,24 +697,53 @@ def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
 
 
+def launch_seip_time_table(P: SeipStatic, *, dt: float, n_steps: int, device) -> torch.Tensor:
+    """Launch ``csrc/seip_rk4.cu``'s table kernel on ``device`` (CUDA):
+    ``(3 * n_steps, TIME_HEAD + A * K)`` float32 time rows of the RK4 stage
+    times, equal to :func:`seip_time_table_reference` bit for bit.
+
+    Adds one to ``launch_seip_time_table.launches`` per launch.
+    """
+    _check_instantiated(P)
+    device = _device.require_hopper(device)
+    A, _, K, _, _ = P.dims
+    table = torch.empty((3 * n_steps, TIME_HEAD + A * K), dtype=torch.float32, device=device)
+    consts = _host_constants(P)
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        rc = lib.dynode_seip_time_table(
+            *P.dims, int(P.seasonal), P.vax_knots.shape[-1], _ptr(consts), float(dt), n_steps,
+            table.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"seip time-table kernel launch failed: CUDA error {rc}")
+    launch_seip_time_table.launches += 1
+    return table
+
+
+launch_seip_time_table.launches = 0
+
+
 def launch_seip_rk4(
     y0, P: SeipStatic, scales: torch.Tensor, *, dt: float, n_steps: int, save_stride: int,
     save: tuple[int, ...], save_dtype: torch.dtype, packed: bool,
 ):
     """Launch ``csrc/seip_rk4.cu``: ``y0`` the shared initial state,
-    ``scales`` ``(L, B)`` on a CUDA device. Returns the saved compartments.
+    ``scales`` ``(L, B)`` on a CUDA device; the time table first
+    (:func:`launch_seip_time_table`, on the same stream), then the solve,
+    :data:`RK4_WIDTH` members per CTA. Returns the saved compartments.
 
-    Adds one to ``launch_seip_rk4.launches`` per launch.
+    Adds one to ``launch_seip_rk4.launches`` per launch of the solve.
     """
     _check_instantiated(P)
     device = _device.require_hopper(scales.device)
     batch = scales.shape[-1]
     y0_flat, scales, consts = _kernel_inputs(y0, P, scales, device)
     outs, ptrs = _outputs(P, save, n_steps // save_stride + 1, batch, save_dtype, packed, device)
+    table = launch_seip_time_table(P, dt=dt, n_steps=n_steps, device=device)
     lib = _build.load_library()
     with torch.cuda.device(device):
         rc = lib.dynode_seip_rk4(
-            *P.dims, int(P.seasonal), P.vax_knots.shape[-1], _ptr(consts),
+            *P.dims, int(P.seasonal), P.vax_knots.shape[-1], _ptr(consts), table.data_ptr(),
             y0_flat.data_ptr(), scales.data_ptr(), *ptrs,
             int(save_dtype == torch.bfloat16), int(packed), batch, float(dt), n_steps,
             save_stride, torch.cuda.current_stream(device).cuda_stream,
@@ -830,16 +908,20 @@ __all__ = [
     "ADAPTIVE_BLOCKS",
     "BLOCK",
     "INSTANTIATED",
+    "RK4_WIDTH",
     "SEIP_ADAPTIVE_BLOCK",
     "SeipStatic",
     "launch_seip_bs3",
     "launch_seip_rk4",
+    "launch_seip_time_table",
     "pack_members",
+    "rk4_stage_times",
     "seip_ensemble_solve",
     "seip_ensemble_solve_adaptive",
     "seip_kernel_rhs",
     "seip_solve_adaptive_reference",
     "seip_solve_reference",
     "seip_static_params",
+    "seip_time_table_reference",
     "unpack_members",
 ]

@@ -19,6 +19,7 @@ from dynode_tpu_torch.models import multistrain as model
 from dynode_tpu_torch.ops import generic as gen
 from dynode_tpu_torch.ops import generic_triton as gtri
 from dynode_tpu_torch.ops import multistrain as ms
+from dynode_tpu_torch.ops import seip as tsp
 
 B = 4096
 DAYS = 200.0
@@ -245,26 +246,66 @@ def test_seip_rk4_kernel_matches_plain_version(cuda, per_strain):
 
 
 @pytest.mark.cuda
-def test_seip_bs3_kernel_matches_plain_version(cuda):
-    """B = 2,047, 60 days, rtol 1e-4, atol 1e-3, the same block width on
-    both sides: at least 99% of the blocks take the plain version's
-    decisions and agree with it to 1e-5, every block to 1e-3."""
-    from dynode_tpu_torch.ops import seip as tsp
+@pytest.mark.parametrize("save_dtype", [torch.float32, torch.bfloat16])
+def test_seip_rk4_variants_match_plain_version(cuda, save_dtype):
+    """The RK4 kernel (16 members per CTA), 60 days, member-last, every
+    compartment and then C alone, at B = 4,095 (no multiple of 8:
+    member-by-member bf16 saves everywhere), 4,100 (a multiple of 4 but not
+    of 8, and a ragged last CTA) and 4,104 (a multiple of 8: 16-byte bf16
+    saves where a CTA is full, a ragged last CTA); then B = 4,096 in the
+    packed layout. The plain version is solved once at 4,104 and sliced:
+    members do not interact. Tolerance 1e-5 (float32), 1e-2 (bf16)."""
+    params, y0, scales = _seip_inputs(cuda, 4104, per_strain=True)
+    P = tsp.seip_static_params(params)
+    kw = dict(dt=0.5, n_steps=120, save_stride=2, save_dtype=save_dtype)
+    tol = TOL if save_dtype == torch.float32 else 1e-2
+    want = tsp.seip_solve_reference(y0, params, scales, duration=60.0)
+    for b in (4095, 4100, 4104):
+        got = tsp.launch_seip_rk4(y0, P, scales[:, :b], save=(0, 1, 2, 3), packed=False, **kw)
+        for g, w in zip(got, want):
+            assert g.dtype == save_dtype and torch.isfinite(g).all() and _rel(g, w[..., :b]) <= tol
+        (c,) = tsp.launch_seip_rk4(y0, P, scales[:, :b], save=(3,), packed=False, **kw)
+        assert _rel(c, want[3][..., :b]) <= tol
+    (c,) = tsp.launch_seip_rk4(y0, P, scales[:, :4096], save=(3,), packed=True, **kw)
+    assert c.dtype == save_dtype and _rel(tsp.unpack_members(c), want[3][..., :4096]) <= tol
 
+
+@pytest.mark.cuda
+def test_seip_time_table_kernel_equals_plain_version(cuda):
+    """The RK4 kernel's time table against its plain version, the time rows
+    of ``_time_scalars`` at the kernel's stage times (``rk4_stage_times``),
+    over 200 days at dt = 0.5 and 60 days at dt = 0.3 (stage times off the
+    step grid). Tolerance: bit for bit -- every operation is rounded on its
+    own on both sides."""
+    params, _, _ = _seip_inputs(cuda, 1)
+    P = tsp.seip_static_params(params)
+    for dt, n_steps in ((0.5, 400), (0.3, 200)):
+        before = tsp.launch_seip_time_table.launches
+        got = tsp.launch_seip_time_table(P, dt=dt, n_steps=n_steps, device=cuda)
+        assert tsp.launch_seip_time_table.launches == before + 1
+        want = tsp.seip_time_table_reference(P, dt=dt, n_steps=n_steps, device=cuda)
+        assert got.shape == want.shape == (3 * n_steps, tsp.TIME_HEAD + 16)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_b", [4, 8, 16])
+def test_seip_bs3_kernel_matches_plain_version(cuda, block_b):
+    """B = 2,047, 60 days, rtol 1e-4, atol 1e-3, the same block width on
+    both sides: the kernel rounds as its plain version, so every block takes
+    the plain version's decisions and its saves equal the plain version's
+    exactly."""
     params, y0, scales = _seip_inputs(cuda, 2047)
-    kw = dict(duration=60.0, rtol=1e-4, atol=1e-3, save=(3,))
+    kw = dict(duration=60.0, rtol=1e-4, atol=1e-3, save=(0, 3), block_b=block_b)
     before = tsp.launch_seip_bs3.launches
-    (got,), stats = tsp.seip_ensemble_solve_adaptive(y0, params, scales, **kw)
+    got, stats = tsp.seip_ensemble_solve_adaptive(y0, params, scales, **kw)
     assert tsp.launch_seip_bs3.launches == before + 1
-    (want,), want_stats = tsp.seip_solve_adaptive_reference(
-        y0, params, scales, block_b=tsp.SEIP_ADAPTIVE_BLOCK, **kw)
-    same = torch.ones_like(stats["n_accepted"], dtype=torch.bool)
-    for key in stats:
-        same &= stats[key] == want_stats[key]
-    rel = _block_rel(got.flatten(1, -2), want.flatten(1, -2), tsp.SEIP_ADAPTIVE_BLOCK)
+    want, want_stats = tsp.seip_solve_adaptive_reference(y0, params, scales, **kw)
     assert int(stats["exhausted_intervals"].sum()) == 0
-    assert float(same.float().mean()) >= 0.99
-    assert float(rel[same].max()) <= TOL and float(rel.max()) <= 1e-3
+    for key in stats:
+        assert torch.equal(stats[key], want_stats[key])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

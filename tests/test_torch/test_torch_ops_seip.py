@@ -213,3 +213,81 @@ def test_kernel_route_refuses_other_shapes(monkeypatch):
         tsp.launch_seip_bs3(ty, tsp.seip_static_params(tp), torch.ones(2, 4), n_saves=2,
                             save_every=1.0, rtol=1e-4, atol=1e-3, dt0=0.125, steps_per_save=8,
                             block_b=64, save=(3,), save_dtype=torch.float32, packed=False)
+
+
+@pytest.mark.parametrize("dt", [0.5, 0.3, 0.05])
+def test_rk4_stage_times_are_the_float32_formulas(dt):
+    """``rk4_stage_times`` forms step n's stage times as the kernel does:
+    ``float(n) * float(dt)``, then ``+ float(0.5 dt)`` and ``+ float(dt)``,
+    each rounded to float32 once. Tolerance: exact. Away from dt = 0.5,
+    ``t_n + dt`` differs from ``t_(n+1)`` at some steps, which is why the
+    kernel's time table keeps three rows per step."""
+    n = 400
+    f32 = np.float32
+    got = tsp.rk4_stage_times(dt, n)
+    assert got.dtype == torch.float32 and got.shape == (n, 3)
+    for step in range(n):
+        t0 = f32(f32(step) * f32(dt))
+        assert got[step, 0].item() == t0
+        assert got[step, 1].item() == f32(t0 + f32(0.5 * dt))
+        assert got[step, 2].item() == f32(t0 + f32(dt))
+    off_grid = int((got[:-1, 2] != got[1:, 0]).sum())
+    assert off_grid == 0 if dt == 0.5 else off_grid > 0
+    t64 = tsp.rk4_stage_times(dt, n, torch.float64)
+    np.testing.assert_array_equal(t64[:, 0].numpy(), np.arange(n) * dt)
+    np.testing.assert_array_equal(t64[:, 2].numpy(), np.arange(n) * dt + dt)
+
+
+@pytest.mark.parametrize("seasonal", [True, False])
+def test_time_rows_match_jax_time_scalars(seasonal):
+    """The plain time rows (the RK4 kernel's table) against the JAX kernel's
+    time scalars at the same stage times, from the JAX static parameters:
+    ``_build_rhs``'s seasonal forcing and introduction pulses,
+    ``models/seip.py::_phi_seasonal`` and ``seip_pallas._spline_scalar``
+    clipped at 0, all float64. Tolerance: rel 1e-12 of each column's largest
+    value in float64; the float32 table (``seip_time_table_reference``) within
+    2e-4 of it (phi = sin^1000 multiplies sin's rounding by 1,000)."""
+    jp, _ = _jax_side(seasonal)
+    tp, _ = _port_side(seasonal)
+    JP, dims, _ = jsp._static_params(jp)
+    A, _, K, _, L = dims
+    P = tsp.seip_static_params(tp)
+    t = tsp.rk4_stage_times(0.5, 400, torch.float64).reshape(-1)
+    got = tsp._time_rows(tsp._Consts(P, torch.float64, torch.device("cpu")), t).numpy()
+    tj = jnp.asarray(t.numpy())
+    want = np.zeros_like(got)
+    want[:, 0] = 1.0 + JP.season_amp * jnp.cos(2.0 * jnp.pi * (tj - JP.season_peak) / 365.0)
+    for l in range(L):
+        if JP.intro_perc[l] != 0.0:
+            z = (tj - JP.intro_time[l]) / JP.intro_scale[l]
+            want[:, 1 + l] = (JP.intro_perc[l] * jnp.exp(-0.5 * z * z)
+                              / (JP.intro_scale[l] * np.sqrt(2.0 * np.pi)))
+    if seasonal:
+        want[:, 1 + L] = js._phi_seasonal(tj, JP.seasonal_vax_tau)
+    for a in range(A):
+        for k in range(K):
+            spline = jsp._spline_scalar(tj, JP.vax_knots[a][k], JP.vax_base_coeffs[a][k],
+                                        JP.vax_knot_coeffs[a][k])
+            want[:, tsp.TIME_HEAD + a * K + k] = np.maximum(np.asarray(spline), 0.0)
+    assert got.shape == (1200, tsp.TIME_HEAD + A * K)
+    scale = np.maximum(np.abs(want).max(axis=0), 1e-300)
+    assert float((np.abs(got - want) / scale).max()) <= 1e-12
+    table = tsp.seip_time_table_reference(P, dt=0.5, n_steps=400, device="cpu")
+    assert table.dtype == torch.float32 and table.shape == got.shape
+    assert float((np.abs(table.double().numpy() - want) / scale).max()) <= 2e-4
+
+
+def test_seip_launchers_refuse_cpu_tensors():
+    """The launch wrappers run their kernels only: given CPU tensors they
+    raise before anything is built, never solving on the CPU."""
+    tp, ty = _port_side(dtype=torch.float32)
+    P = tsp.seip_static_params(tp)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tsp.launch_seip_time_table(P, dt=0.5, n_steps=2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tsp.launch_seip_rk4(ty, P, torch.ones(2, 4), dt=0.5, n_steps=2, save_stride=2, save=(3,),
+                            save_dtype=torch.float32, packed=False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tsp.launch_seip_bs3(ty, P, torch.ones(2, 4), n_saves=2, save_every=1.0, rtol=1e-4,
+                            atol=1e-3, dt0=0.125, steps_per_save=8, block_b=4, save=(3,),
+                            save_dtype=torch.float32, packed=False)

@@ -229,12 +229,85 @@ def test_kernel_instantiations_match_the_source():
     bs3 = (_build.SRC_DIR / "seip_bs3.cu").read_text()
     for A, J, K, M, L, seasonal in tseip.INSTANTIATED:
         shape = f"{A}, {J}, {K}, {M}, {L}, {str(seasonal).lower()}"
-        assert f"launch<{shape}>" in rk4
+        assert f"seip_time_table_kernel<{shape}>" in rk4
+        assert f"return launch<{shape}, kWidth>(" in rk4
         for block_b in tseip.ADAPTIVE_BLOCKS:
             assert f"case {block_b}:" in bs3 and f"launch<{shape}, {block_b}>" in bs3
-    assert f"kMaxKnots = {tseip.MAX_KNOTS};" in (_build.SRC_DIR / "seip_rhs.cuh").read_text()
-    for name, text in (("dynode_seip_rk4", rk4), ("dynode_seip_bs3", bs3)):
+    assert f"constexpr int kWidth = {tseip.RK4_WIDTH};" in rk4
+    rhs = (_build.SRC_DIR / "seip_rhs.cuh").read_text()
+    assert f"kMaxKnots = {tseip.MAX_KNOTS};" in rhs
+    assert f"kHead = {tseip.TIME_HEAD};" in rhs
+    for name, text in (("dynode_seip_time_table", rk4), ("dynode_seip_rk4", rk4),
+                       ("dynode_seip_bs3", bs3)):
         assert f'extern "C" int {name}(' in text
+
+
+_RK4_MANGLED = ("_ZN44_GLOBAL__N__b6e0147a_11_seip_rk4_cu_1e2cf0b615seip_rk4_kernelILi4ELi4ELi4ELi4ELi2E"
+                "Lb1ELi16EEEvN11dynode_seip6ConstsIXT_EXT0_EXT1_EXT2_EXT3_EEEPKfS5_S5_NS1_4OutsEifffii")
+_TABLE_MANGLED = ("_ZN44_GLOBAL__N__b6e0147a_11_seip_rk4_cu_1e2cf0b622seip_time_table_kernelILi4ELi4ELi4E"
+                  "Li4ELi2ELb1EEEvN11dynode_seip6ConstsIXT_EXT0_EXT1_EXT2_EXT3_EEEffiPf")
+_OTHER_MANGLED = ("_ZN53_GLOBAL__N__60a38f7a_20_multistrain_tsit5_cu_a4f11b3524multistrain_tsit5_kernel"
+                  "ILi3ELi2EEEvPKfS2_S2_Pfifii")
+
+
+@pytest.mark.parametrize("mangled, label", [
+    (_RK4_MANGLED, "seip_rk4_kernel<16>"),
+    (_TABLE_MANGLED, "seip_time_table_kernel"),
+    (_OTHER_MANGLED, _OTHER_MANGLED),
+])
+def test_kernel_label_names_the_variant(mangled, label):
+    """A SEIP kernel is named by the template arguments after the model's
+    shape (the RK4 kernel's CTA width); other symbols keep their
+    mangled name."""
+    assert _build.kernel_label(mangled) == label
+
+
+def test_ptxas_resources_reads_registers_and_spills():
+    """Registers and spill bytes of each kernel of an ``-Xptxas -v`` log, by
+    kernel label (the log's lines as nvcc 12.8 writes them)."""
+    log = (f"ptxas info    : Compiling entry function '{_RK4_MANGLED}' for 'sm_90a'\n"
+           "ptxas info    : Function properties for x\n"
+           "    80 bytes stack frame, 84 bytes spill stores, 192 bytes spill loads\n"
+           "ptxas info    : Used 128 registers, used 1 barriers, 80 bytes cumulative stack size\n"
+           f"ptxas info    : Compiling entry function '{_TABLE_MANGLED}' for 'sm_90a'\n"
+           "    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 26 registers, used 0 barriers\n")
+    assert _build.ptxas_resources(log) == {
+        "seip_rk4_kernel<16>": {"spill_stores": 84, "spill_loads": 192, "registers": 128},
+        "seip_time_table_kernel": {"spill_stores": 0, "spill_loads": 0, "registers": 26},
+    }
+
+
+def test_sass_mix_counts_the_instruction_classes():
+    """The static mix of a ``cuobjdump -sass`` listing: predicated
+    instructions count by their opcode, encoding lines and kernels whose name
+    lacks the match are skipped, MUFU counts in all and by function."""
+    text = "\n".join([
+        f"\t\tFunction : {_OTHER_MANGLED}",
+        "        /*0000*/                   FFMA R1, R2, R3, R4 ;   /* 0x000 */",
+        f"\t\tFunction : {_RK4_MANGLED}",
+        "\t.headerflags\t@\"EF_CUDA_SM90\"",
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */",
+        "                                                            /* 0x000fe40000000800 */",
+        "        /*0010*/                   FFMA R2, R3, R4, R5 ;",
+        "        /*0020*/                   FADD.FTZ R2, R3, R4 ;",
+        "        /*0030*/              @!P0 FMUL R2, R3, R4 ;",
+        "        /*0040*/                   FMNMX R2, R3, R4, !PT ;",
+        "        /*0050*/                   MUFU.RCP R6, R2 ;",
+        "        /*0060*/               @P1 MUFU.EX2 R6, R2 ;",
+        "        /*0070*/                   SHFL.BFLY PT, R7, R6, 0x1, 0x1f ;",
+        "        /*0080*/                   LDS.128 R8, [R1] ;",
+        "        /*0090*/                   STS [R1], R8 ;",
+        "        /*00a0*/                   LDG.E.CONSTANT R8, desc[UR4][R2.64] ;",
+        "        /*00b0*/                   STG.E.128 desc[UR4][R2.64], R8 ;",
+        "        /*00c0*/                   STL [R1], R8 ;",
+        "        /*00d0*/                   LDL R8, [R1] ;",
+        "        /*00e0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;",
+        "        /*00f0*/                   EXIT ;",
+    ])
+    assert _build.sass_mix(text) == {"seip_rk4_kernel<16>": {
+        "total": 16, "FP32": 4, "MUFU": 2, "MUFU.RCP": 1, "MUFU.EX2": 1, "SHFL": 1, "LDS": 1,
+        "STS": 1, "LDG": 1, "STG": 1, "LDL/STL": 2, "BAR": 1}}
 
 
 @pytest.mark.parametrize(
