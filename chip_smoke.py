@@ -27,8 +27,8 @@ compile per CUDA source, all started together; Triton's JIT), then:
    plain version's at those shapes;
 6. holds the adaptive kernel against its plain version at the same block
    width (bosh3 and tsit5; multi-strain at 4,096 and 4,095 members, SIR at
-   4,096; c rows as bf16), counting the blocks whose accept/reject
-   statistics differ; checks its attempt budget (NaN slots equal the
+   4,096; c rows as bf16): every block must take the plain version's
+   accept/reject decisions; checks its attempt budget (NaN slots equal the
    exhausted intervals) and its accuracy against the constant-step kernel
    at dt = 0.05;
 7. holds the 2-D multi-strain kernel against its plain version and against
@@ -38,7 +38,8 @@ compile per CUDA source, all started together; Triton's JIT), then:
    B = 9,984 -- and checks finiteness, zero exhausted intervals, padding,
    mass conservation and that every kernel launched;
 9. times them as phase 5 does and holds their main path against the plain
-   versions;
+   versions; prints the adaptive kernel's registers, spills and static SASS
+   instruction mix (Triton's compile facts, ``cuobjdump`` on its cubin);
 10. holds the two SEIP kernels (the production SEIP model of
     ``bench_seip.py``, 640 floats per member) against their plain versions:
     the RK4 kernel's time table bit for bit, RK4 at 4,096 and 4,095 members
@@ -93,8 +94,8 @@ MID = 163840  # the adaptive kernel's all-rows width (bench stage 3)
 D2 = 40  # rows of the aligned 2-D layout at (A, K) = (2, 3) and (3, 2)
 RTOL, ATOL = 1e-4, 1e-6  # the adaptive solve's tolerances on the main path
 ADAPTIVE_STAGES = 4  # bosh3: 3 RHS evaluations per attempt (FSAL), 1 more per block
-MIN_SAME = 0.99  # share of adaptive blocks whose stats must equal the plain version's
-TOL_ADAPTIVE_ALL = 1e-3  # adaptive kernel vs plain over all blocks (a decision may flip)
+MIN_SAME = 0.99  # share of SEIP adaptive blocks whose stats must equal the plain version's
+TOL_ADAPTIVE_ALL = 1e-3  # SEIP adaptive kernel vs plain over all blocks (a decision may flip)
 TOL_ACCURACY = 5e-3  # adaptive vs dt = 0.05 constant step: max |d| / (1e-6 + |ref|)
 SEIP_WIDE = 32768  # bench_seip.py's KERNEL_WIDE; the adaptive kernel also runs at twice it
 SEIP_RTOL, SEIP_ATOL = 1e-4, 1e-3  # bench_seip.py's adaptive tolerances
@@ -495,31 +496,25 @@ def main() -> int:
             rhs, y, p, block_b=gen.ADAPTIVE_BLOCK, **adaptive_kw, **kw)
         return got, got_stats, want, want_stats
 
-    def report_adaptive(what, got, got_stats, want, want_stats, tol_same, tol_all=TOL_ADAPTIVE_ALL):
-        """Gate the kernel per block: blocks whose statistics equal the plain
-        version's within tol_same, all blocks within tol_all, and at least
-        MIN_SAME of the blocks with equal statistics."""
+    def report_adaptive(what, got, got_stats, want, want_stats, tol):
+        """Gate the kernel per block: every block's statistics equal the
+        plain version's, and its saves agree within tol."""
         same = torch.ones_like(got_stats["n_accepted"], dtype=torch.bool)
         for key in got_stats:
             same &= got_stats[key] == want_stats[key]
         n = got.shape[-1]
         block_of = torch.arange(n, device=dev) // gen.ADAPTIVE_BLOCK
-        scale = float(want.float().abs().max())
         member_abs = (got.float() - want.float()).abs().amax(dim=(0, 1))
         block_abs = torch.zeros(same.shape[0], device=dev).scatter_reduce_(0, block_of, member_abs, "amax")
-        rel_same = float(block_abs[same].max()) / scale if bool(same.any()) else float("nan")
-        rel_all = float(block_abs.max()) / scale
-        frac = float(same.float().mean())
+        rel = float(block_abs.max()) / float(want.float().abs().max())
         attempts = int((got_stats["n_accepted"] + got_stats["n_rejected"]).sum())
         print(f"  rk_solve_adaptive {what}: {int((~same).sum())} of {same.numel()} blocks with other "
-              f"stats; max rel err {rel_same:.3e} over equal-stats blocks (tol {tol_same:.0e}), "
-              f"{rel_all:.3e} over all (tol {tol_all:.0e}); {attempts} attempts, "
+              f"stats (tol 0); max rel err {rel:.3e} (tol {tol:.0e}); {attempts} attempts, "
               f"{int(got_stats['exhausted_intervals'].sum())} exhausted")
-        check(frac >= MIN_SAME, f"rk_solve_adaptive {what}: only {frac:.3f} of blocks match")
-        check(rel_same <= tol_same, f"rk_solve_adaptive {what}: rel err {rel_same:.3e} > {tol_same:.0e}")
-        check(rel_all <= tol_all, f"rk_solve_adaptive {what}: rel err {rel_all:.3e} > {tol_all:.0e}")
-        if tol_same == TOL_F32:
-            errors["rk_solve_adaptive"].append(float(block_abs[same].max()))
+        check(bool(same.all()), f"rk_solve_adaptive {what}: {int((~same).sum())} blocks with other stats")
+        check(rel <= tol, f"rk_solve_adaptive {what}: rel err {rel:.3e} > {tol:.0e}")
+        if tol == TOL_F32:
+            errors["rk_solve_adaptive"].append(float(block_abs.max()))
 
     for method in ("bosh3", "tsit5"):
         cases = (("multistrain", rhs_ms, y_ms, p_ms), ("multistrain", rhs_ms, y_rag, p_rag),
@@ -536,7 +531,7 @@ def main() -> int:
     check(not got[:, len(c_rows):].any(), "padding rows of the adaptive obs saves are not zero")
     want = gen.select_saves(want, c_rows, torch.bfloat16, True)
     report_adaptive("bosh3 c rows, bf16, padded", got[:, :len(c_rows)], got_stats,
-                    want[:, :len(c_rows)], want_stats, TOL_BF16, TOL_BF16)
+                    want[:, :len(c_rows)], want_stats, TOL_BF16)
 
     # the attempt budget: rtol 1e-10 cannot be met in float32 in 2 attempts
     got, got_stats = gen.ensemble_solve_kernel_adaptive(
@@ -626,7 +621,7 @@ def main() -> int:
     want_mid, want_mid_stats = gen.ensemble_solve_kernel_adaptive_reference(
         rhs_ms, y_mid, p_mid, block_b=gen.ADAPTIVE_BLOCK, **adaptive_kw)
     report_adaptive(f"main path B={MID}, all rows, bf16", mid, mid_stats,
-                    want_mid.to(torch.bfloat16), want_mid_stats, TOL_BF16, TOL_BF16)
+                    want_mid.to(torch.bfloat16), want_mid_stats, TOL_BF16)
     del mid, want_mid
 
     check(tuple(saves_2d.shape) == (int(DAYS) + 1, D2, ENSEMBLE), f"2-D saves shape {tuple(saves_2d.shape)}")
@@ -652,7 +647,7 @@ def main() -> int:
 
     p_ms_, plain = wall_ms(adaptive_plain)
     report_adaptive(f"main path B={WIDE}, c rows, bf16, padded", obs_ad[:, :len(c_rows)], obs_stats,
-                    plain[:, :len(c_rows)], plain_stats["s"], TOL_BF16, TOL_BF16)
+                    plain[:, :len(c_rows)], plain_stats["s"], TOL_BF16)
     times["rk_solve_adaptive"] = (k_ms, p_ms_, WIDE)
     del plain
     mid_ms, _ = median_ms(lambda: gen.ensemble_solve_kernel_adaptive(
@@ -671,6 +666,9 @@ def main() -> int:
         rhs_ms, y_wide, p_wide, rtol=RTOL, atol=ATOL, dt0=1.0 / 8, steps_per_save=8, method="bosh3",
         block_b=gen.ADAPTIVE_BLOCK, save_rows=c_rows, save_dtype=torch.bfloat16, padded_rows=True,
         **grid_kw))
+    # the compile the main path's obs call used: Triton's facts and the static SASS mix
+    adaptive_facts = {"n_regs": gtri.kernel_info["n_regs"], "n_spills": gtri.kernel_info["n_spills"],
+                      "maxnreg": gtri.kernel_info["maxnreg"], "sass": gtri.adaptive_sass_mix()}
     device_ms["multistrain_tsit5_2d"] = event_ms(lambda: ms.launch_multistrain_tsit5_2d(
         y_2d, r_2d, contact, dt=DT, n_steps=n_steps, save_stride=stride, n_age=A, n_strain=K))
     for name in ("rk_solve_adaptive", "multistrain_tsit5_2d"):
@@ -680,6 +678,9 @@ def main() -> int:
               f"plain {p_ms_:.1f} ms ({b / p_ms_ * 1e3:,.0f} traj/s) [{smi}]")
     print(f"  rk_solve_adaptive B={MID}, all rows bf16: entry point {mid_ms:.3f} ms "
           f"({MID / mid_ms * 1e3:,.0f} traj/s); {mid_attempts} attempts in {mid_blocks} blocks [{smi}]")
+    print(f"  rk_solve_adaptive B={WIDE} (bosh3, c rows bf16): n_regs {adaptive_facts['n_regs']}, n_spills "
+          f"{adaptive_facts['n_spills']} at maxnreg {adaptive_facts['maxnreg']}; static SASS "
+          f"{adaptive_facts['sass'] or 'not available (no cuobjdump found)'}")
     print(f"  B={ENSEMBLE}, kernel alone: multistrain_tsit5_2d {device_ms['multistrain_tsit5_2d']:.3f} ms "
           f"vs multistrain_tsit5 {device_ms['multistrain_tsit5']:.3f} ms (CUDA events) [{smi}]")
 
@@ -1015,6 +1016,7 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": None, "batch": times[name][2],
             "kernel_event_ms": device_ms[name],
         })
+    kernels[list(meta).index("rk_solve_adaptive")].update(adaptive_facts)
     kernels[list(meta).index("seip_rk4")].update(
         time_table_launches=table_launches, full4_event_ms=full4_ms, full4_bound_ms=full4_bound)
     print(f"chip_smoke: {time.perf_counter() - t_start:.0f} s from start to the result")

@@ -2,8 +2,9 @@
 """Block-width sweeps of the port's adaptive kernels, the two multi-strain
 kernels in turns, and the SEIP kernels' widths, on one H100.
 
-    python3 chip_sweep.py        # everything
-    python3 chip_sweep.py seip   # the SEIP part only
+    python3 chip_sweep.py          # everything
+    python3 chip_sweep.py generic  # the adaptive generic kernel's register caps only
+    python3 chip_sweep.py seip     # the SEIP part only
 
 Run from the root of a checkout on a machine with one CUDA card of compute
 capability 9.0. It solves the two adaptive main paths of ``chip_smoke.py`` --
@@ -14,8 +15,13 @@ in 32, 64, 128 and 256. For each it prints the solve's time by CUDA events
 (median of 3 after a warm-up), trajectories per second, the attempts and the
 RHS evaluations counted from the statistics (``3 * attempts + n_blocks``)
 and the exhausted intervals. The block's stiffest member sets its dt, so the
-width changes the work as well as the parallelism. Then it times the row
-kernel (``csrc/multistrain_tsit5.cu``) and the 2-D kernel
+width changes the work as well as the parallelism. At the default width it
+then sweeps the adaptive kernel's register cap (Triton's ``maxnreg``: none,
+192, 168, 144, 128 at two warps a program) at both widths, in turns (the
+caps in order, then in reverse, twice; CUDA events over 5 launches each),
+prints each cap's median, ``n_regs``, ``n_spills`` and static SASS mix,
+and checks that every cap gives the same saves and statistics. Then it
+times the row kernel (``csrc/multistrain_tsit5.cu``) and the 2-D kernel
 (``csrc/multistrain_tsit5_2d.cu``) at the main path's B = 9,984 in turns
 (row, 2-D, 2-D, row; five rounds; CUDA events over 5 launches each) and
 prints each one's median. Last, on the SEIP main path of ``chip_smoke.py``
@@ -35,6 +41,7 @@ It imports no JAX and exits non-zero without a card.
 
 from __future__ import annotations
 
+import functools
 import statistics
 import subprocess
 import sys
@@ -46,6 +53,7 @@ REPO = Path(__file__).resolve().parent
 WIDTHS_B = (163840, 655360)
 DAYS = 200.0
 WIDTHS = (32, 64, 128, 256)
+MAXNREGS = (None, 192, 168, 144, 128)
 
 
 def main() -> int:
@@ -73,7 +81,7 @@ def main() -> int:
     n_rows = ms.D_ROWS
     c_rows = tuple(range(n_rows - ms.A_DIM * ms.K_DIM, n_rows))
 
-    def run(batch: int, block_b: int) -> None:
+    def inputs(batch: int):
         scales = np.clip(np.random.default_rng(0).normal(1.0, 0.15, batch), 0.6, 1.6)
         beta = base.beta[None, :] * torch.as_tensor(scales, dtype=torch.float32, device=dev)[:, None]
         y = ms.pack_state(y0, batch)
@@ -81,6 +89,10 @@ def main() -> int:
         kw = dict(duration=DAYS, rtol=1e-4, atol=1e-6, save_dtype=torch.bfloat16)
         if batch > 163840:
             kw.update(save_rows=c_rows, padded_rows=True)
+        return y, p, kw
+
+    def run(batch: int, block_b: int) -> None:
+        y, p, kw = inputs(batch)
         solve = lambda: gen.ensemble_solve_kernel_adaptive(rhs, y, p, block_b=block_b, **kw)
         _, stats = solve()  # compile and warm up
         times = []
@@ -101,11 +113,47 @@ def main() -> int:
               f"{int(stats['n_rejected'].sum())}, exhausted {int(stats['exhausted_intervals'].sum())}, "
               f"n_regs {gtri.kernel_info['n_regs']}, n_spills {gtri.kernel_info['n_spills']} [{smi}]")
 
+    def register_caps(batch: int) -> None:
+        """The adaptive kernel at each cap of MAXNREGS, in turns."""
+        y, p, kw = inputs(batch)
+        rows = kw.get("save_rows", tuple(range(n_rows)))
+        launch = dict(n_saves=int(DAYS) + 1, save_every=1.0, rtol=1e-4, atol=1e-6, dt0=1.0 / 8,
+                      steps_per_save=8, method="bosh3", t0=0.0, block_b=gen.ADAPTIVE_BLOCK,
+                      save_rows=rows, save_dtype=torch.bfloat16,
+                      padded_rows=kw.get("padded_rows", False))
+        solves = {cap: functools.partial(gtri.launch_rk_solve_adaptive, rhs, y, p, maxnreg=cap, **launch)
+                  for cap in MAXNREGS}
+        facts, first = {}, None
+        for cap, solve in solves.items():  # compile, and hold every cap to the first one's results
+            out, stats = solve()
+            torch.cuda.synchronize()
+            facts[cap] = (gtri.kernel_info["n_regs"], gtri.kernel_info["n_spills"], gtri.adaptive_sass_mix())
+            if first is None:
+                first = (out, stats)
+            if not (torch.equal(out, first[0]) and all(torch.equal(stats[k], first[1][k]) for k in stats)):
+                raise RuntimeError(f"maxnreg {cap} changed the results at B={batch}")
+        attempts = int((first[1]["n_accepted"] + first[1]["n_rejected"]).sum())
+        times = {cap: [] for cap in MAXNREGS}
+        for _ in range(2):
+            for cap in MAXNREGS + MAXNREGS[::-1]:
+                times[cap].append(_event_ms(solves[cap]))
+        for cap in MAXNREGS:
+            n_regs, n_spills, mix = facts[cap]
+            print(f"adaptive B={batch} {'c' if 'save_rows' in kw else 'all'} rows maxnreg {cap}: median "
+                  f"{statistics.median(times[cap]):.3f} ms of {len(times[cap])} (min {min(times[cap]):.3f}, "
+                  f"max {max(times[cap]):.3f}), in turns; {attempts} attempts, the same results at every "
+                  f"cap; n_regs {n_regs}, n_spills {n_spills}; static SASS {mix} [{smi}]")
+
     if sys.argv[1:] == ["seip"]:
         return seip_sweep(dev, smi)
+    if sys.argv[1:] != ["generic"]:
+        for batch in WIDTHS_B:
+            for block_b in WIDTHS:
+                run(batch, block_b)
     for batch in WIDTHS_B:
-        for block_b in WIDTHS:
-            run(batch, block_b)
+        register_caps(batch)
+    if sys.argv[1:] == ["generic"]:
+        return 0
 
     n = 9984
     scales = np.clip(np.random.default_rng(1).normal(1.0, 0.15, n), 0.6, 1.6)

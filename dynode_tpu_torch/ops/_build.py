@@ -26,6 +26,7 @@ import collections
 import ctypes
 import functools
 import hashlib
+import importlib.util
 import os
 import re
 import shutil
@@ -228,36 +229,53 @@ _SASS_LINE = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0
 _FP32 = ("FADD", "FMUL", "FFMA", "FMNMX")
 
 
-def sass_counts(lib: Path) -> dict[str, dict[str, int]] | None:
-    """:func:`sass_mix` of ``cuobjdump -sass lib`` (the cuobjdump beside
-    nvcc); None where cuobjdump is missing."""
+def cuobjdump() -> Path | None:
+    """The ``cuobjdump`` beside nvcc, else the one Triton ships under
+    ``triton/backends/nvidia/bin/``; None where there is neither."""
     try:
         tool = Path(find_nvcc()).with_name("cuobjdump")
     except RuntimeError:
+        tool = None
+    if tool is not None and tool.is_file():
+        return tool
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        tool = Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+        if tool.is_file():
+            return tool
+    return None
+
+
+def sass_counts(binary: Path, match: str = "seip_") -> dict[str, dict[str, int]] | None:
+    """:func:`sass_mix` of ``cuobjdump -sass binary`` (a shared library or a
+    cubin); None where :func:`cuobjdump` finds no tool."""
+    tool = cuobjdump()
+    if tool is None:
         return None
-    if not tool.is_file():
-        return None
-    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+    text = subprocess.run([str(tool), "-sass", str(binary)], capture_output=True, text=True,
                           check=True).stdout
-    return sass_mix(text)
+    return sass_mix(text, match)
 
 
-def sass_mix(text: str) -> dict[str, dict[str, int]]:
-    """Static instruction mix of each SEIP kernel in a ``cuobjdump -sass``
-    listing: float32 arithmetic (FADD, FMUL, FFMA,
-    FMNMX), MUFU in all and by function, SHFL, LDS, STS, LDG, STG, local
-    loads and stores, barriers and the total, by :func:`kernel_label`."""
+def sass_mix(text: str, match: str = "seip_") -> dict[str, dict[str, int]]:
+    """Static instruction mix of each kernel whose name holds ``match`` in a
+    ``cuobjdump -sass`` listing: float32 arithmetic (FADD, FMUL, FFMA,
+    FMNMX) and FFMA alone, MUFU in all and by function, SHFL, LDS, STS, LDG,
+    STG, local loads and stores, barriers and the total, by
+    :func:`kernel_label`."""
     out, counts = {}, None
     for line in text.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            counts = out.setdefault(kernel_label(name), collections.Counter()) if "seip_" in name else None
+            counts = out.setdefault(kernel_label(name), collections.Counter()) if match in name else None
         elif counts is not None and (m := _SASS_LINE.match(line)):
             op = m.group(1)
             base = op.split(".")[0]
             counts["total"] += 1
             if base in _FP32:
                 counts["FP32"] += 1
+                if base == "FFMA":
+                    counts["FFMA"] += 1
             elif base == "MUFU":
                 counts["MUFU"] += 1
                 counts[op] += 1
@@ -318,6 +336,7 @@ __all__ = [
     "SOURCE_FLAGS",
     "build_key",
     "build_log",
+    "cuobjdump",
     "find_nvcc",
     "kernel_label",
     "library_path",

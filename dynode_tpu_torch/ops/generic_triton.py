@@ -38,8 +38,8 @@ FSAL stage carried across attempts, and per-block statistics.
 - One program owns ``block_b`` members, one per thread, and carries one
   scalar ``(t, dt, accepted, rejected, exhausted)`` chain with the state
   rows ``y`` and the FSAL rows ``f`` in registers for the whole solve. The
-  one cross-member operation, the block max of the error norm, is a
-  ``tl.max`` over the program's members.
+  one cross-member operation, the block max of the error norm, is one
+  ``tl.max`` over the program's members per attempt.
 - Inactive attempts are not run: the TPU kernel runs a fixed trip count of
   ``steps_per_save`` attempts per interval and masks those after the block
   has landed (``pl.when(active)``); here a scalar ``while`` loop runs only
@@ -47,11 +47,12 @@ FSAL stage carried across attempts, and per-block statistics.
   changes no state, so the decisions are the same.
 - NaN in the block max: ``jnp.max`` propagates a NaN norm (the step is then
   rejected with factor 0.2), but a Triton ``tl.max`` reduction may drop it.
-  The kernel reduces a separate "some member's norm is not finite" flag and
-  takes the max only as the norm of a block whose flag is clear.
+  The kernel maps a norm that is NaN or inf to inf before the max, so the
+  block's norm is inf exactly where the plain version's is not finite, and
+  ``ok = norm < inf`` takes the same decision with one reduction.
 - Masked lanes: members past ``batch`` load 1.0 and run the RHS on it; they
-  are left out of the max and of the flag, so an RHS that gives NaN or inf
-  there cannot reach the block's decisions, and they store nothing.
+  enter the max as 0, so an RHS that gives NaN or inf there cannot reach
+  the block's decisions, and they store nothing.
 - Decisions are a discontinuous function of rounding: a norm that moves by
   one ulp across a threshold changes the number of steps of a block, and
   with it the whole path. On the SIR rows-RHS under tsit5, the first step's
@@ -62,15 +63,27 @@ FSAL stage carried across attempts, and per-block statistics.
   every product is rounded before it is added, as in the plain version and
   the JAX reference; divisions and square roots are IEEE (``tl.div_rn``,
   ``tl.sqrt_rn``) and the step factor uses libdevice ``exp``/``log``. The
-  cost in time is in ``PERF.md``; ``chip_smoke.py`` still counts the blocks
-  whose statistics differ from the plain version's.
+  cost in time is in ``PERF.md``; ``chip_smoke.py`` requires every block's
+  statistics to equal the plain version's.
 - The interval ends are the plain version's float32 values, read from a
   small table (``generic._save_ends``): the first is ``float32(t0 +
   save_every)``, the others ``t0 + s * save_every`` in float32, with no FMA.
-- What bounds it on the H100: float32 operations. Tsit5 holds 7 stage
-  tuples of R rows plus ``y``, ``f`` and the candidate, about 270 floats per
-  member at R = 26, so it spills; bosh3, the default, holds 4. The compiled
-  kernel's ``n_regs`` and ``n_spills`` are in ``kernel_info``.
+- What bounds it on the H100: float32 operations, issued without FMA
+  contraction, so latency: each thread runs one long dependent chain and
+  the SM needs many warps to hide it. Two choices keep the register file
+  from limiting them. Each stage's error contribution is summed as the
+  stage arrives (``embedded_stages``), in the plain version's order from
+  zero, so the same rounding: stages 1 to NS - 2 die before the last RHS,
+  and each row's error is finished and folded into the norm at once, so no
+  error tuple exists. For bosh3 the live set at the last RHS is ``y``,
+  ``f``, ``y_new`` and the partial error sums, 4R floats (it was 5R). And
+  the registers are capped (:data:`ADAPTIVE_MAXNREG`, Triton's
+  ``maxnreg``): at 168 a thread an SM holds 6 programs of 2 warps, where
+  the uncapped bosh3 kernel (190 to 240 registers) fits 4 or 5; the main
+  path's two builds (bf16 saves) do not spill. Off the main path, the
+  float32 all-rows build spills 10 bytes under the cap and Tsit5, with
+  more stages, 78. The compiled kernel's ``n_regs`` and ``n_spills`` are in
+  ``kernel_info``, its static SASS mix from :func:`adaptive_sass_mix`.
 - Statistics go to three ``(nb,)`` int32 rows; the JAX ``(nb, 8, 128)`` flag
   tile was a Mosaic layout.
 
@@ -246,10 +259,12 @@ def _adaptive_kernel():
     from triton.language.extra import libdevice
 
     @triton.jit
-    def embedded_step(y, f0, p, t, dt, RHS: tl.constexpr, C: tl.constexpr, R: tl.constexpr,
-                      A_TAB: tl.constexpr, B_TAB: tl.constexpr, E_TAB: tl.constexpr,
-                      C_TAB: tl.constexpr, NS: tl.constexpr):
-        # stage 0 is the FSAL carry f(t, y); stage NS - 1 is f(t + dt, y_new)
+    def embedded_stages(y, f0, p, t, dt, RHS: tl.constexpr, C: tl.constexpr, R: tl.constexpr,
+                        A_TAB: tl.constexpr, B_TAB: tl.constexpr, E_TAB: tl.constexpr,
+                        C_TAB: tl.constexpr, NS: tl.constexpr):
+        # stage 0 is the FSAL carry f(t, y); the caller evaluates stage NS - 1,
+        # f(t + dt, y_new). Returns y_new and, per row, the error sum of the
+        # stages before it, so no stage outlives this function.
         ks = (f0,)
         for s in tl.static_range(1, NS - 1):
             ys = ()
@@ -261,22 +276,18 @@ def _adaptive_kernel():
                 ys = ys + (y[r] + dt * acc,)
             ks = ks + (RHS(ys, p, t + C_TAB[s] * dt, C),)
         y_new = ()
+        e_part = ()
         for r in tl.static_range(R):
             acc = tl.zeros_like(y[r])
+            e_acc = tl.zeros_like(y[r])
             for j in tl.static_range(NS - 1):
                 if B_TAB[j] != 0.0:
                     acc = acc + B_TAB[j] * ks[j][r]
-            y_new = y_new + (y[r] + dt * acc,)
-        k_last = RHS(y_new, p, t + C_TAB[NS - 1] * dt, C)
-        ks = ks + (k_last,)
-        err = ()
-        for r in tl.static_range(R):
-            acc = tl.zeros_like(y[r])
-            for j in tl.static_range(NS):
                 if E_TAB[j] != 0.0:
-                    acc = acc + E_TAB[j] * ks[j][r]
-            err = err + (dt * acc,)
-        return y_new, err, k_last
+                    e_acc = e_acc + E_TAB[j] * ks[j][r]
+            y_new = y_new + (y[r] + dt * acc,)
+            e_part = e_part + (e_acc,)
+        return y_new, e_part
 
     @triton.jit
     def save(out_ptr, y, slot, reached, batch, offs, mask, SAVE_ROWS: tl.constexpr,
@@ -329,21 +340,29 @@ def _adaptive_kernel():
                 remaining = s_end - t
                 dt_used = tl.minimum(dt, remaining)
                 landing = dt_used >= remaining - eps
-                y_new, err, k_last = embedded_step(y, f, p, t, dt_used, RHS, C, R,
-                                                   A_TAB, B_TAB, E_TAB, C_TAB, NS)
+                y_new, e_part = embedded_stages(y, f, p, t, dt_used, RHS, C, R,
+                                                A_TAB, B_TAB, E_TAB, C_TAB, NS)
+                k_last = RHS(y_new, p, t + C_TAB[NS - 1] * dt_used, C)
+                # each row's error is finished and folded into the sum at once
                 sq = tl.zeros_like(y[0])
                 for r in tl.static_range(R):
+                    if E_TAB[NS - 1] != 0.0:
+                        err = dt_used * (e_part[r] + E_TAB[NS - 1] * k_last[r])
+                    else:
+                        err = dt_used * e_part[r]
                     sc = atol + rtol * tl.maximum(tl.abs(y[r]), tl.abs(y_new[r]))
-                    q = tl.div_rn(err[r], sc)
+                    q = tl.div_rn(err, sc)
                     if r == 0:
                         sq = q * q
                     else:
                         sq = sq + q * q
                 norm_m = tl.sqrt_rn(sq * INV_ROWS)
-                # not finite: NaN or inf (norm_m >= 0 otherwise)
-                n_nonfinite = tl.max(tl.where(mask & ~(norm_m < float("inf")), 1, 0), axis=0)
+                # one block reduction: a NaN or inf norm counts as inf (it
+                # wins the max, as NaN wins the plain version's), a masked
+                # lane as 0
+                norm_m = tl.where(norm_m < float("inf"), norm_m, float("inf"))
                 norm = tl.max(tl.where(mask, norm_m, 0.0), axis=0)
-                ok = n_nonfinite == 0
+                ok = norm < float("inf")
                 safe = tl.maximum(norm, 1e-30)
                 factor = 0.9 * libdevice.exp(libdevice.log(safe) * NEG_INV_ORDER)
                 factor = tl.minimum(tl.maximum(factor, 0.2), 10.0)
@@ -367,8 +386,18 @@ def _adaptive_kernel():
     return triton, solve_adaptive
 
 
-#: ``{"n_regs": ..., "n_spills": ...}`` of the last compiled adaptive
-#: kernel, as Triton reports them
+#: register cap per thread of the adaptive kernel (Triton's ``maxnreg``), or
+#: None for none. ``chip_sweep.py generic`` on an H100 80GB HBM3 at 700 W
+#: (bosh3, multi-strain rows-RHS, 200 days, in turns) gave for none / 192 /
+#: 168 / 144 / 128: at B = 655,360 with the c rows as bf16 (uncapped 190
+#: registers, 5 programs an SM) 10.464 / 8.806 / 8.849 / 9.346 / 9.354 ms,
+#: and at B = 163,840 with all rows as bf16 (uncapped 240, 4 programs)
+#: 2.909 / 3.001 / 2.840 / 2.940 / 3.018 ms; 144 and 128 spill. 168 is the
+#: best at the second width and 0.5% behind 192 at the first.
+ADAPTIVE_MAXNREG = 168
+
+#: ``n_regs``, ``n_spills`` and ``maxnreg`` of the last compiled adaptive
+#: kernel, as Triton reports them, and its ``cubin``
 kernel_info: dict = {}
 
 
@@ -389,12 +418,15 @@ def launch_rk_solve_adaptive(
     save_rows: tuple[int, ...],
     save_dtype: torch.dtype,
     padded_rows: bool,
+    maxnreg: int | None = ADAPTIVE_MAXNREG,
 ):
     """Launch the adaptive Triton solve on contiguous float32 CUDA rows.
 
     Returns ``(saves, stats)`` as
     :func:`~dynode_tpu_torch.ops.generic.ensemble_solve_kernel_adaptive`.
-    Adds one to ``launch_rk_solve_adaptive.launches`` per launch.
+    ``maxnreg`` caps the registers per thread (None: no cap); it changes
+    where values live, never the results. Adds one to
+    ``launch_rk_solve_adaptive.launches`` per launch.
     """
     device = _device.require_hopper(y0_rows.device)
     n_rows, batch = y0_rows.shape
@@ -427,8 +459,10 @@ def launch_rk_solve_adaptive(
             # no FMA contraction: the accept/reject decisions are then the
             # plain version's (with it, 16 of 64 blocks flipped; module note)
             enable_fp_fusion=False,
+            **({} if maxnreg is None else {"maxnreg": maxnreg}),
         )
-    kernel_info.update(n_regs=compiled.n_regs, n_spills=compiled.n_spills)
+    kernel_info.update(n_regs=compiled.n_regs, n_spills=compiled.n_spills, maxnreg=maxnreg,
+                       cubin=compiled.asm["cubin"])
     launch_rk_solve_adaptive.launches += 1
     names = ("exhausted_intervals", "n_accepted", "n_rejected")
     return out, dict(zip(names, stats))
@@ -437,4 +471,16 @@ def launch_rk_solve_adaptive(
 launch_rk_solve_adaptive.launches = 0
 
 
-__all__ = ["BLOCK", "kernel_info", "launch_rk_solve", "launch_rk_solve_adaptive"]
+def adaptive_sass_mix() -> dict[str, int] | None:
+    """Static SASS instruction mix (:func:`._build.sass_mix`) of the last
+    compiled adaptive kernel, from its cubin written under the build
+    directory; None where no ``cuobjdump`` is found."""
+    path = _build.BUILD_ROOT / "triton_sass" / "solve_adaptive.cubin"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(kernel_info["cubin"])
+    mix = _build.sass_counts(path, match="solve_adaptive")
+    return None if mix is None else mix["solve_adaptive"]
+
+
+__all__ = ["ADAPTIVE_MAXNREG", "BLOCK", "adaptive_sass_mix", "kernel_info", "launch_rk_solve",
+           "launch_rk_solve_adaptive"]

@@ -148,6 +148,64 @@ def test_plain_rejections_match_jax_reference(method, rtol, atol):
     _assert_close(got, want)
 
 
+def _sir_nan(where):
+    """SIR whose members give NaN from their own time on: ``p = [beta,
+    gamma, t_nan]``, ds/dt is NaN once ``t >= t_nan``; ``where`` is
+    ``jnp.where`` or ``torch.where``."""
+
+    def rhs(y, p, t):
+        s, i, r = y
+        beta, gamma, t_nan = p
+        inf = beta * s * i
+        rec = gamma * i
+        return [where(t >= t_nan, float("nan"), -inf), inf - rec, rec]
+
+    return rhs
+
+
+@pytest.mark.parametrize("method", ["bosh3", "tsit5"])
+def test_plain_non_finite_norm_matches_jax_reference(method):
+    """One member turns NaN at t = 5.3 (SIR, B = 64, one block, 20 days): a
+    NaN norm wins the block max, so every attempt that reaches 5.3 is
+    rejected at factor 0.2 and the block runs out of budget in every
+    interval from (5, 6] on. The plain version's statistics equal the JAX
+    reference's exactly, its NaN slots are the same, and its saves agree
+    within the module's tolerance."""
+    B, bad, t_nan = 64, 10, 5.3
+    y0, p = _sir_inputs(B, seed=5)
+    t_row = np.full((1, B), np.inf, np.float32)
+    t_row[0, bad] = t_nan
+    p = np.concatenate([p, t_row])
+    kw = dict(duration=20.0, rtol=1e-5, atol=1e-8, method=method)
+    want, wstats = jgp.ensemble_solve_kernel_adaptive_reference(
+        _sir_nan(jnp.where), jnp.asarray(y0), jnp.asarray(p), **kw)
+    got, stats = tg.ensemble_solve_kernel_adaptive_reference(
+        _sir_nan(torch.where), torch.as_tensor(y0), torch.as_tensor(p), **kw)
+    _assert_stats_equal(stats, wstats)
+    assert int(stats["exhausted_intervals"][0]) == 20 - int(t_nan)
+    assert int(stats["n_rejected"][0]) > int(stats["exhausted_intervals"][0])
+    nan_slots = torch.isnan(got).all(dim=(1, 2))
+    assert int(nan_slots.sum()) == 20 - int(t_nan) and not nan_slots[: int(t_nan) + 1].any()
+    np.testing.assert_array_equal(torch.isnan(got).numpy(), np.isnan(np.asarray(want)))
+    _assert_close(got, want)
+
+
+def test_adaptive_launcher_refuses_cpu_tensors():
+    """The Triton launcher takes CUDA rows only: on CPU tensors it raises
+    before it builds anything (no Triton here) and counts no launch."""
+    from dynode_tpu_torch.ops import generic_triton as gtri
+
+    y0, p = _sir_inputs(64, seed=5)
+    before = gtri.launch_rk_solve_adaptive.launches
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        gtri.launch_rk_solve_adaptive(
+            tg.RowsRHS(sir_rows, lambda: None), torch.as_tensor(y0), torch.as_tensor(p),
+            n_saves=3, save_every=1.0, rtol=1e-4, atol=1e-6, dt0=0.125, steps_per_save=8,
+            method="bosh3", t0=0.0, block_b=64, save_rows=(0, 1, 2), save_dtype=torch.float32,
+            padded_rows=False)
+    assert gtri.launch_rk_solve_adaptive.launches == before
+
+
 def test_plain_blocks_match_jax_kernel_interpret():
     """Two 128-member blocks at B = 256 carry independent dt chains: the
     per-block statistics equal those of the JAX kernel in interpret mode."""

@@ -306,8 +306,51 @@ def test_sass_mix_counts_the_instruction_classes():
         "        /*00f0*/                   EXIT ;",
     ])
     assert _build.sass_mix(text) == {"seip_rk4_kernel<16>": {
-        "total": 16, "FP32": 4, "MUFU": 2, "MUFU.RCP": 1, "MUFU.EX2": 1, "SHFL": 1, "LDS": 1,
+        "total": 16, "FP32": 4, "FFMA": 1, "MUFU": 2, "MUFU.RCP": 1, "MUFU.EX2": 1, "SHFL": 1, "LDS": 1,
         "STS": 1, "LDG": 1, "STG": 1, "LDL/STL": 2, "BAR": 1}}
+
+
+def test_sass_mix_takes_any_kernel_name():
+    """``match`` picks the kernels of a listing by name: the Triton adaptive
+    kernel's cubin names it ``solve_adaptive``, and the default still picks
+    only the SEIP kernels."""
+    text = "\n".join([
+        "\t\tFunction : solve_adaptive",
+        "        /*0000*/                   FMUL R2, R3, R4 ;",
+        "        /*0010*/                   SHFL.BFLY PT, R7, R6, 0x1, 0x1f ;",
+        "        /*0020*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;",
+        f"\t\tFunction : {_RK4_MANGLED}",
+        "        /*0000*/                   FADD R2, R3, R4 ;",
+    ])
+    assert _build.sass_mix(text, match="solve_adaptive") == {"solve_adaptive": {
+        "total": 3, "FP32": 1, "SHFL": 1, "BAR": 1}}
+    assert _build.sass_mix(text) == {"seip_rk4_kernel<16>": {"total": 1, "FP32": 1}}
+
+
+def test_cuobjdump_beside_nvcc_then_in_triton(tmp_path, monkeypatch):
+    """The tool beside nvcc wins; without it, the one Triton ships under
+    ``triton/backends/nvidia/bin/``; with neither, None."""
+    cuda_bin, triton_pkg = tmp_path / "cuda" / "bin", tmp_path / "triton"
+    (triton_pkg / "backends" / "nvidia" / "bin").mkdir(parents=True)
+    cuda_bin.mkdir(parents=True)
+    (triton_pkg / "__init__.py").write_text("")
+    shipped = triton_pkg / "backends" / "nvidia" / "bin" / "cuobjdump"
+    shipped.write_text("")
+    spec = type("Spec", (), {"origin": str(triton_pkg / "__init__.py")})()
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(cuda_bin / "nvcc"))
+    monkeypatch.setattr(_build.importlib.util, "find_spec", lambda name: spec if name == "triton" else None)
+    assert _build.cuobjdump() == shipped
+    (cuda_bin / "cuobjdump").write_text("")
+    assert _build.cuobjdump() == cuda_bin / "cuobjdump"
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
+    assert _build.cuobjdump() == shipped
+    monkeypatch.setattr(_build.importlib.util, "find_spec", lambda name: None)
+    assert _build.cuobjdump() is None
+    assert _build.sass_counts(tmp_path / "lib.so") is None
 
 
 @pytest.mark.parametrize(
