@@ -12,7 +12,8 @@ compile per CUDA source, all started together; Triton's JIT), then:
 2. holds the two constant-step kernels against their plain PyTorch versions
    on the card (4,096 members, 200 days, dt = 0.5), and at 4,095 members,
    which is a multiple of neither kernel's block, so each runs its masked
-   last block;
+   last block; the CUDA kernel at 4,095 members at each team width its
+   launcher may pick (one lane per member, one per age) and both shapes;
 3. holds the CUDA kernel against an anchor independent of both versions,
    ``tests/golden/trajectories.npz`` (float64, adaptive);
 4. drives their main path at full size -- the scenario ensemble of
@@ -24,7 +25,8 @@ compile per CUDA source, all started together; Triton's JIT), then:
    (host clock: entry points median of 3 after a warm-up, plain versions
    one call), and each kernel alone with
    CUDA events, and holds the main path's results from phase 4 against the
-   plain version's at those shapes;
+   plain version's at those shapes; prints the CUDA kernel's team width,
+   block width, registers, spills and static SASS mix;
 6. holds the adaptive kernel against its plain version at the same block
    width (bosh3 and tsit5; multi-strain at 4,096 and 4,095 members, SIR at
    4,096; c rows as bf16): every block must take the plain version's
@@ -32,14 +34,16 @@ compile per CUDA source, all started together; Triton's JIT), then:
    exhausted intervals) and its accuracy against the constant-step kernel
    at dt = 0.05;
 7. holds the 2-D multi-strain kernel against its plain version and against
-   the row kernel, at (2, 3) and (3, 2), 4,096 and 4,095 members;
+   the row kernel, at (2, 3) and (3, 2), 4,096 and 4,095 members (there at
+   each team width);
 8. drives the main path of those two -- the adaptive kernel at B = 163,840
    (all rows, bf16) and B = 655,360 (c rows, bf16), the 2-D kernel at
    B = 9,984 -- and checks finiteness, zero exhausted intervals, padding,
    mass conservation and that every kernel launched;
 9. times them as phase 5 does and holds their main path against the plain
    versions; prints the adaptive kernel's registers, spills and static SASS
-   instruction mix (Triton's compile facts, ``cuobjdump`` on its cubin);
+   instruction mix (Triton's compile facts, ``cuobjdump`` on its cubin) and
+   the 2-D kernel's facts as phase 5 does;
 10. holds the two SEIP kernels (the production SEIP model of
     ``bench_seip.py``, 640 floats per member) against their plain versions:
     the RK4 kernel's time table bit for bit, RK4 at 4,096 and 4,095 members
@@ -81,7 +85,7 @@ REPO = Path(__file__).resolve().parent
 DAYS = 200.0
 DT = 0.5
 SLICE = 4096
-RAGGED = SLICE - 1  # a multiple of neither the CUDA block (128) nor the Triton BLOCK (64)
+RAGGED = SLICE - 1  # a multiple of no CUDA block or warp's members, nor of the Triton BLOCK (64)
 ENSEMBLE = 9984
 WIDE = 655360
 SEED = 0
@@ -312,7 +316,14 @@ def main() -> int:
         kw = dict(batch=SLICE, duration=DAYS, dt=DT, n_age=na, n_strain=nk)
         got = ms.ensemble_solve_tsit5(*args, **kw)
         want = ms.ensemble_solve_reference(*args, **kw)
-        report("multistrain_tsit5", f"(A,K)=({na},{nk})", got, want, TOL_F32)
+        report("multistrain_tsit5", f"(A,K)=({na},{nk}) team {ms.pick_team(SLICE, na)}", got, want, TOL_F32)
+        for team in ms.teams(na):  # each team width the launcher may pick, on a ragged batch
+            got = ms.launch_multistrain_tsit5(
+                ms.pack_state(y, RAGGED, na, nk), ms.pack_params(args[1][:RAGGED], *args[2:5], RAGGED, nk),
+                p.contact_matrix, dt=DT, n_steps=int(round(DAYS / DT)), save_stride=int(round(1.0 / DT)),
+                n_age=na, n_strain=nk, team=team)
+            report("multistrain_tsit5", f"(A,K)=({na},{nk}) team {team} B={RAGGED}", got, want[..., :RAGGED],
+                   TOL_F32)
         if (na, nk) == (A, K):
             want_ms = want
 
@@ -482,6 +493,21 @@ def main() -> int:
         print(f"  {name} B={b}: entry point {k_ms:.3f} ms ({b / k_ms * 1e3:,.0f} traj/s), "
               f"kernel alone {device_ms[name]:.3f} ms (CUDA events), "
               f"plain {p_ms_:.1f} ms ({b / p_ms_ * 1e3:,.0f} traj/s) [{smi}]")
+    # the two multi-strain kernels' compile facts: registers, spills, static SASS mix
+    ms_facts = ms.compile_facts(_build.build_log(), _build.sass_counts(_build.library_path(), match="multistrain_"))
+
+    def team_facts(kernel: str, batch: int) -> dict:
+        """The instantiation the launcher picks at ``batch`` (A = 2, K = 3) and its facts."""
+        team = ms.pick_team(batch, A)
+        f = ms_facts.get(ms.kernel_name(kernel, A, K, team), {})
+        out = {"team": team, "threads": ms.THREADS, "registers": f.get("registers"),
+               "spill_stores": f.get("spill_stores"), "spill_loads": f.get("spill_loads"), "sass": f.get("sass")}
+        print(f"  {kernel} B={batch}: team of {team} lane(s) a member, {ms.THREADS} threads a block; registers "
+              f"{out['registers']}, spill stores / loads {out['spill_stores']} / {out['spill_loads']} B; static "
+              f"SASS {out['sass'] or 'not available (no cuobjdump found)'}")
+        return out
+
+    row_facts = team_facts("multistrain_tsit5", ENSEMBLE)
 
     # ---- 6. the adaptive kernel against its plain version --------------------
     print(f"phase 6: adaptive kernel vs plain, {DAYS:.0f} days, rtol {RTOL:g}, atol {ATOL:g}, "
@@ -571,7 +597,15 @@ def main() -> int:
             want = solve_2d_plain(args, kw)
             check(tuple(got.shape) == (int(DAYS) + 1, D2, b), f"2-D saves shape {tuple(got.shape)}")
             check(not got[:, pad].any(), f"2-D padding rows not zero at (A,K)=({na},{nk}) B={b}")
-            report("multistrain_tsit5_2d", f"(A,K)=({na},{nk}) B={b}", got, want, TOL_F32)
+            report("multistrain_tsit5_2d", f"(A,K)=({na},{nk}) team {ms.pick_team(b, na)} B={b}", got, want,
+                   TOL_F32)
+            for team in ms.teams(na) if b == RAGGED else ():  # each team width the launcher may pick
+                got_t = ms.launch_multistrain_tsit5_2d(
+                    ms.pack_state_2d(y, b, na, nk), ms.pack_rates_2d(*args[1:5], b, na, nk), p.contact_matrix,
+                    dt=DT, n_steps=int(round(DAYS / DT)), save_stride=int(round(1.0 / DT)), n_age=na,
+                    n_strain=nk, team=team)
+                check(not got_t[:, pad].any(), f"2-D padding rows not zero at team {team}")
+                report("multistrain_tsit5_2d", f"(A,K)=({na},{nk}) team {team} B={b}", got_t, want, TOL_F32)
             rows = ms.ensemble_solve_tsit5(*args, **kw)
             two_d = torch.cat([x.reshape(x.shape[0], b, -1) for x in ms.unpack_saves_2d(got, na, nk)], -1)
             row_k = torch.cat([x.reshape(x.shape[0], b, -1) for x in ms.unpack_saves(rows, na, nk)], -1)
@@ -683,6 +717,7 @@ def main() -> int:
           f"{adaptive_facts['sass'] or 'not available (no cuobjdump found)'}")
     print(f"  B={ENSEMBLE}, kernel alone: multistrain_tsit5_2d {device_ms['multistrain_tsit5_2d']:.3f} ms "
           f"vs multistrain_tsit5 {device_ms['multistrain_tsit5']:.3f} ms (CUDA events) [{smi}]")
+    facts_2d = team_facts("multistrain_tsit5_2d", ENSEMBLE)
 
     # ---- 10. the SEIP kernels against their plain versions ---------------------
     from dynode_tpu_torch.models import seip as seip_model
@@ -1017,6 +1052,8 @@ def main() -> int:
             "kernel_event_ms": device_ms[name],
         })
     kernels[list(meta).index("rk_solve_adaptive")].update(adaptive_facts)
+    kernels[list(meta).index("multistrain_tsit5")].update(row_facts)
+    kernels[list(meta).index("multistrain_tsit5_2d")].update(facts_2d)
     kernels[list(meta).index("seip_rk4")].update(
         time_table_launches=table_launches, full4_event_ms=full4_ms, full4_bound_ms=full4_bound)
     print(f"chip_smoke: {time.perf_counter() - t_start:.0f} s from start to the result")

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Block-width sweeps of the port's adaptive kernels, the two multi-strain
-kernels in turns, and the SEIP kernels' widths, on one H100.
+kernels' team and block widths, and the SEIP kernels' widths, on one H100.
 
-    python3 chip_sweep.py          # everything
-    python3 chip_sweep.py generic  # the adaptive generic kernel's register caps only
-    python3 chip_sweep.py seip     # the SEIP part only
+    python3 chip_sweep.py              # everything
+    python3 chip_sweep.py generic      # the adaptive generic kernel's register caps only
+    python3 chip_sweep.py multistrain  # the two multi-strain kernels only
+    python3 chip_sweep.py seip         # the SEIP part only
 
 Run from the root of a checkout on a machine with one CUDA card of compute
 capability 9.0. It solves the two adaptive main paths of ``chip_smoke.py`` --
@@ -21,10 +22,18 @@ then sweeps the adaptive kernel's register cap (Triton's ``maxnreg``: none,
 caps in order, then in reverse, twice; CUDA events over 5 launches each),
 prints each cap's median, ``n_regs``, ``n_spills`` and static SASS mix,
 and checks that every cap gives the same saves and statistics. Then it
-times the row kernel (``csrc/multistrain_tsit5.cu``) and the 2-D kernel
-(``csrc/multistrain_tsit5_2d.cu``) at the main path's B = 9,984 in turns
-(row, 2-D, 2-D, row; five rounds; CUDA events over 5 launches each) and
-prints each one's median. Last, on the SEIP main path of ``chip_smoke.py``
+times the two multi-strain kernels (the row kernel
+``csrc/multistrain_tsit5.cu`` and the 2-D kernel
+``csrc/multistrain_tsit5_2d.cu``, 200 days at dt = 0.5) at every team
+width the launchers may pick (one lane per member, one per age) and 64,
+128 and 256 threads a block: at (A, K) = (2, 3) for B = 9,984 (the main
+path), 39,936, 65,536, 98,304, 163,840 and 655,360, and at (3, 2) for
+B = 9,984, in turns (the variants in order, then in reverse, twice; CUDA
+events over 5 launches each). It prints each variant's median, the teams
+the launchers pick and every instantiation's registers, spills and
+static SASS mix, and holds each variant's saves to the first variant's
+(1e-5 of the largest value; past 8,192 members on the first and last
+4,096). Last, on the SEIP main path of ``chip_smoke.py``
 (``bench_seip.py``'s production configuration, 200 days, scales
 Uniform(0.85, 1.2)), it times the RK4 kernel (``csrc/seip_rk4.cu``, dt =
 0.5, B = 32,768) with C saved in float32 at t = 0 and t = 200 only, then
@@ -144,6 +153,8 @@ def main() -> int:
                   f"max {max(times[cap]):.3f}), in turns; {attempts} attempts, the same results at every "
                   f"cap; n_regs {n_regs}, n_spills {n_spills}; static SASS {mix} [{smi}]")
 
+    if sys.argv[1:] == ["multistrain"]:
+        return multistrain_sweep(dev, smi)
     if sys.argv[1:] == ["seip"]:
         return seip_sweep(dev, smi)
     if sys.argv[1:] != ["generic"]:
@@ -154,31 +165,78 @@ def main() -> int:
         register_caps(batch)
     if sys.argv[1:] == ["generic"]:
         return 0
-
-    n = 9984
-    scales = np.clip(np.random.default_rng(1).normal(1.0, 0.15, n), 0.6, 1.6)
-    beta = base.beta[None, :] * torch.as_tensor(scales, dtype=torch.float32, device=dev)[:, None]
-    contact = tuple(tuple(row) for row in base.contact_matrix.tolist())
-    grid = dict(dt=0.5, n_steps=int(2 * DAYS), save_stride=2, n_age=ms.A_DIM, n_strain=ms.K_DIM)
-    y_row = ms.pack_state(y0, n)
-    p_row = ms.pack_params(beta, base.sigma, base.gamma, base.omega, n)
-    y_2d = ms.pack_state_2d(y0, n)
-    p_2d = ms.pack_rates_2d(beta, base.sigma, base.gamma, base.omega, n)
-    kernels = {
-        "row": lambda: ms.launch_multistrain_tsit5(y_row, p_row, contact, **grid),
-        "2-D": lambda: ms.launch_multistrain_tsit5_2d(y_2d, p_2d, contact, **grid),
-    }
-
-    for fn in kernels.values():
-        fn()  # build and warm up
-    times = {name: [] for name in kernels}
-    for _ in range(5):
-        for name in ("row", "2-D", "2-D", "row"):
-            times[name].append(_event_ms(kernels[name]))
-    for name, ts in times.items():
-        print(f"multi-strain {name} kernel, B={n}, {DAYS:.0f} days: median {statistics.median(ts):.3f} ms "
-              f"of {len(ts)} (min {min(ts):.3f}, max {max(ts):.3f}), in turns [{smi}]")
+    multistrain_sweep(dev, smi)
     return seip_sweep(dev, smi)
+
+
+MS_WIDTHS = {(2, 3): (9984, 39936, 65536, 98304, 163840, 655360), (3, 2): (9984,)}
+MS_THREADS = (64, 128, 256)
+MS_SAMPLE = 4096  # members compared at each end of the widest batch
+
+
+def multistrain_sweep(dev, smi) -> int:
+    """The two multi-strain kernels at every team and block width, in turns."""
+    import torch
+
+    from dynode_tpu_torch.models import multistrain as model
+    from dynode_tpu_torch.ops import _build
+    from dynode_tpu_torch.ops import multistrain as ms
+
+    other = dict(r0s=(2.0, 2.5), tinf=(7.0, 6.0), tlat=(3.0, 2.5), twane=(60.0, 80.0), demo=(0.4, 0.4, 0.2))
+    kernels = (("multistrain_tsit5", ms.launch_multistrain_tsit5, ms.pack_state, ms.pack_params),
+               ("multistrain_tsit5_2d", ms.launch_multistrain_tsit5_2d, ms.pack_state_2d, ms.pack_rates_2d))
+    for (n_age, n_strain), widths in MS_WIDTHS.items():
+        if (n_age, n_strain) == (ms.A_DIM, ms.K_DIM):
+            params = model.multistrain_default_params(device=dev)
+            y0 = model.multistrain_initial_state(device=dev)
+        else:
+            params = model.multistrain_default_params(other["r0s"], other["tinf"], other["tlat"],
+                                                      other["twane"], n_age=n_age, device=dev)
+            y0 = model.multistrain_initial_state(other["r0s"], other["demo"], device=dev)
+        for batch in widths:
+            scales = np.clip(np.random.default_rng(1).normal(1.0, 0.15, batch), 0.6, 1.6)
+            beta = params.beta[None, :] * torch.as_tensor(scales, dtype=torch.float32, device=dev)[:, None]
+            rates = (beta, params.sigma, params.gamma, params.omega)
+            grid = dict(dt=0.5, n_steps=int(2 * DAYS), save_stride=2, n_age=n_age, n_strain=n_strain)
+            for name, launch, pack_y, pack_p in kernels:
+                y = pack_y(y0, batch, n_age, n_strain)
+                p = (pack_p(*rates, batch, n_strain) if pack_p is ms.pack_params
+                     else pack_p(*rates, batch, n_age, n_strain))
+                variants = {(team, threads): functools.partial(launch, y, p, params.contact_matrix,
+                                                               team=team, threads=threads, **grid)
+                            for team in ms.teams(n_age) for threads in MS_THREADS}
+                first, diffs = None, {}
+                for key, solve in variants.items():  # build, and hold every variant to the first
+                    out = solve()
+                    if batch > MS_SAMPLE * 2:
+                        out = torch.cat([out[..., :MS_SAMPLE], out[..., -MS_SAMPLE:]], -1)
+                    if first is None:
+                        first = out
+                    diffs[key] = (float((out - first).abs().max() / first.abs().max()),
+                                  torch.equal(out, first))
+                    del out
+                    if diffs[key][0] > 1e-5:
+                        raise RuntimeError(f"{name} team {key[0]} threads {key[1]} B={batch}: "
+                                           f"rel diff {diffs[key][0]:.3e} from the first variant")
+                del first
+                times = {key: [] for key in variants}
+                order = list(variants)
+                for _ in range(2):
+                    for key in order + order[::-1]:
+                        times[key].append(_event_ms(variants[key]))
+                for (team, threads), ts in times.items():
+                    rel, same = diffs[(team, threads)]
+                    print(f"{name} (A,K)=({n_age},{n_strain}) B={batch} team {team} threads {threads:3d}: "
+                          f"median {statistics.median(ts):.3f} ms of {len(ts)} (min {min(ts):.3f}, max "
+                          f"{max(ts):.3f}), in turns; vs the first variant rel {rel:.2e}, bit for bit "
+                          f"{same} [{smi}]", flush=True)
+                print(f"{name} (A,K)=({n_age},{n_strain}) B={batch}: the launcher picks team "
+                      f"{ms.pick_team(batch, n_age)}, threads {ms.THREADS}", flush=True)
+    facts = ms.compile_facts(_build.build_log(), _build.sass_counts(_build.library_path(), match="multistrain_"))
+    for label, f in sorted(facts.items()):
+        print(f"{label}: registers {f.get('registers')}, spill stores {f.get('spill_stores')} B, "
+              f"loads {f.get('spill_loads')} B; static SASS {f['sass'] or 'not available'}")
+    return 0
 
 
 def _event_ms(fn, reps=5) -> float:

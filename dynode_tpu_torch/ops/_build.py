@@ -286,53 +286,59 @@ def sass_mix(text: str, match: str = "seip_") -> dict[str, dict[str, int]]:
     return {name: dict(c) for name, c in out.items()}
 
 
-def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Argument and return types of every C entry point."""
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dynode_multistrain_tsit5.argtypes = [
-        i, i,  # n_age, n_strain
-        p, p, p, p,  # y0, params, contact, out
-        i, f, i, i,  # batch, dt, n_steps, save_stride
-        p,  # stream
-    ]
-    lib.dynode_multistrain_tsit5.restype = i
-    lib.dynode_multistrain_tsit5_2d.argtypes = [
-        i, i,  # n_age, n_strain
-        p, p, p, p,  # y0, rates, contact, out
-        i, ctypes.c_double, i, i,  # batch, dt, n_steps, save_stride
-        p,  # stream
-    ]
-    lib.dynode_multistrain_tsit5_2d.restype = i
-    d = ctypes.c_double
+def argtypes() -> dict[str, list]:
+    """The ctypes argument types of every C entry point, by name; each
+    returns an int (a CUDA error code, 0 on success)."""
+    p, i, f, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
     seip_head = [
         i, i, i, i, i, i, i,  # A, J, K, M, L, seasonal, n_knots
         p, p, p,  # consts (host float64), y0, scales
         p, p, p, p,  # out_s, out_e, out_i, out_c (0 where not saved)
     ]
-    lib.dynode_seip_time_table.argtypes = seip_head[:8] + [
-        d, i, p,  # dt, n_steps, table
-        p,  # stream
-    ]
-    lib.dynode_seip_time_table.restype = i
-    lib.dynode_seip_rk4.argtypes = seip_head[:8] + [
-        p, p, p,  # table, y0, scales
-        p, p, p, p,  # out_s, out_e, out_i, out_c (0 where not saved)
-        i, i, i, d, i, i,  # bf16, packed, batch, dt, n_steps, save_stride
-        p,  # stream
-    ]
-    lib.dynode_seip_rk4.restype = i
-    lib.dynode_seip_bs3.argtypes = seip_head + [
-        p,  # flags
-        i, i, i, i, i,  # bf16, packed, batch, block_b, n_saves
-        d, d, d, d, i,  # save_every, rtol, atol, dt0, steps_per_save
-        p,  # stream
-    ]
-    lib.dynode_seip_bs3.restype = i
+    return {
+        "dynode_multistrain_tsit5": [
+            i, i, i, i,  # n_age, n_strain, team, threads
+            p, p, p, p,  # y0, params, contact, out
+            i, f, i, i,  # batch, dt, n_steps, save_stride
+            p,  # stream
+        ],
+        "dynode_multistrain_tsit5_2d": [
+            i, i, i, i,  # n_age, n_strain, team, threads
+            p, p, p, p,  # y0, rates, contact, out
+            i, d, i, i,  # batch, dt, n_steps, save_stride
+            p,  # stream
+        ],
+        "dynode_seip_time_table": seip_head[:8] + [
+            d, i, p,  # dt, n_steps, table
+            p,  # stream
+        ],
+        "dynode_seip_rk4": seip_head[:8] + [
+            p, p, p,  # table, y0, scales
+            p, p, p, p,  # out_s, out_e, out_i, out_c (0 where not saved)
+            i, i, i, d, i, i,  # bf16, packed, batch, dt, n_steps, save_stride
+            p,  # stream
+        ],
+        "dynode_seip_bs3": seip_head + [
+            p,  # flags
+            i, i, i, i, i,  # bf16, packed, batch, block_b, n_saves
+            d, d, d, d, i,  # save_every, rtol, atol, dt0, steps_per_save
+            p,  # stream
+        ],
+    }
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument and return types of every C entry point."""
+    for name, arg_types in argtypes().items():
+        fn = getattr(lib, name)
+        fn.argtypes = arg_types
+        fn.restype = ctypes.c_int
     return lib
 
 
 __all__ = [
     "NVCC_FLAGS",
+    "argtypes",
     "SOURCE_FLAGS",
     "build_key",
     "build_log",

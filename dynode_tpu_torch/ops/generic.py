@@ -226,6 +226,16 @@ def _step_time(t0: float, step: int, dt: float, device) -> torch.Tensor:
     return torch.tensor(t, dtype=torch.float32, device=device)
 
 
+def check_block_b(block_b: int | None) -> None:
+    """Accept the JAX entry points' ``block_b`` (the lane-block width of a
+    TPU grid step) and reject a non-positive one. The port's constant-step
+    kernels pick their own width and mask the ragged last block, so the
+    value changes nothing else: unlike the JAX kernels, no
+    ``batch % block_b`` constraint applies."""
+    if block_b is not None and int(block_b) <= 0:
+        raise ValueError(f"block_b must be positive, got {block_b}")
+
+
 def ensemble_solve_kernel_reference(
     rhs, y0_rows, p_rows=None, *, duration, dt, save_every=1.0, method="tsit5", t0=0.0,
 ) -> torch.Tensor:
@@ -271,6 +281,7 @@ def ensemble_solve_kernel(
     save_dtype: torch.dtype = torch.float32,
     save_rows: Sequence[int] | None = None,
     padded_rows: bool = False,
+    block_b: int | None = None,
 ) -> torch.Tensor:
     """Whole-solve ensemble of a rows-RHS on a uniform save grid.
 
@@ -287,9 +298,12 @@ def ensemble_solve_kernel(
     save_rows: rows to save, in this order (default: all R).
     padded_rows: return ``(n_saves, pad8(len(save_rows)), B)`` with zero
         padding rows, the JAX kernel's layout, instead of exact rows.
+    block_b: the JAX keyword, accepted for its call form; a positive value
+        changes nothing (:func:`check_block_b`).
 
     Returns ``(n_saves, len(save_rows), B)`` saves in ``save_dtype``.
     """
+    check_block_b(block_b)
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; one of {list(METHODS)}")
     if save_dtype not in SAVE_DTYPES:

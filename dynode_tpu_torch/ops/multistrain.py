@@ -12,8 +12,8 @@ age groups, K strains) by B ensemble members; the per-member rates are
   on :func:`multistrain_rows_rhs`, whose expression order mirrors the JAX
   ``_tsit5_step_rows`` / ``_rhs_rows``;
 - CUDA tensors go to the hand-written kernel ``csrc/multistrain_tsit5.cu``
-  (one member per thread, state and stages in registers; see the source
-  note there), built for ``sm_90a`` by :mod:`._build`, or raise.
+  (a team of lanes per member, state and stages in registers; see the
+  source note there), built for ``sm_90a`` by :mod:`._build`, or raise.
 
 The kernel is instantiated for ``(A, K)`` in :data:`INSTANTIATED`; another
 shape on a CUDA tensor raises ``ValueError``.
@@ -23,18 +23,24 @@ JAX 2-D variant (``multistrain_pallas.py``'s ``_solve_kernel_2d``): the same
 model on an aligned ``(D2, B)`` layout, each compartment group padded to a
 multiple of 8 rows, with per-(age, strain)-row rates and the expression
 order of ``_rhs_2d`` / ``_tsit5_step_2d``. CPU tensors go to
-:func:`_solve_2d_reference`, CUDA tensors to ``csrc/multistrain_tsit5_2d.cu``
-(8 lanes per member, one (age, strain) pair per lane).
+:func:`_solve_2d_reference`, CUDA tensors to ``csrc/multistrain_tsit5_2d.cu``.
+
+Both kernels share one right-hand side (``csrc/multistrain_team.cuh``): a
+member is served by a team of lanes, one lane for the whole member or one
+lane per age; :func:`pick_team` chooses, by batch.
 """
 
 from __future__ import annotations
+
+import functools
+import re
 
 import torch
 
 from .. import _device
 from ..ode.solvers import Tsit5
 from . import _build
-from .generic import RowsRHS, ensemble_solve_kernel_reference
+from .generic import RowsRHS, check_block_b, ensemble_solve_kernel_reference
 from .generic_triton import _import_triton
 
 #: benchmark-workload defaults
@@ -45,6 +51,68 @@ D_ROWS = A_DIM + 4 * A_DIM * K_DIM
 #: (n_age, n_strain) shapes the CUDA kernel is compiled for
 INSTANTIATED = ((2, 3), (3, 2))
 
+#: threads a block of the two kernels. ``chip_sweep.py multistrain`` on an
+#: H100 80GB HBM3 at 700 W: 64 and 128 level at every team width and batch,
+#: 256 up to 49% slower (one lane per member at B = 9,984: 0.507 / 0.508 /
+#: 0.755 ms).
+THREADS = 128
+
+
+def teams(n_age: int) -> tuple[int, ...]:
+    """Lanes per member the kernels are compiled for: one lane for the whole
+    member, or one lane per age."""
+    return (1, n_age)
+
+
+#: widest batch at which the launchers give each age its own lane. The
+#: sweep above, (A, K) = (2, 3), one lane per age against one per member,
+#: row / 2-D kernel in ms: B = 9,984 0.468 / 0.443 against 0.507 / 0.449;
+#: 39,936 1.055 / 0.989 against 1.495 / 1.174; 65,536 1.643 / 1.455
+#: against 1.499 / 1.330; and one lane per member stays ahead up to 655,360.
+TEAM_UP_TO = 39936
+
+
+def pick_team(batch: int, n_age: int) -> int:
+    """Lanes per member the launchers use for ``batch`` members of
+    ``n_age`` ages: one per age up to :data:`TEAM_UP_TO` members, else one.
+
+    A small batch leaves one-lane warps too few for the card's schedulers
+    (312 warps for 528 at B = 9,984) or needs a second wave of them (216
+    registers a lane give 8 resident warps an SM); a wide one fills the card
+    either way, and there the team's shuffles are extra issue.
+    """
+    return n_age if batch <= TEAM_UP_TO else 1
+
+
+def _launch_shape(batch: int, n_age: int, team: int | None,
+                  threads: int | None) -> tuple[int, int]:
+    """``(team, threads)``: the caller's, checked, or the defaults."""
+    team = pick_team(batch, n_age) if team is None else int(team)
+    threads = THREADS if threads is None else int(threads)
+    if team not in teams(n_age):
+        raise ValueError(f"team must be one of {teams(n_age)} at {n_age} ages, got {team}")
+    if threads <= 0 or threads > 256 or threads % 32:
+        raise ValueError(f"threads must be a multiple of 32 up to 256, got {threads}")
+    return team, threads
+
+
+def _contact_on(contact, device: torch.device, n_age: int) -> torch.Tensor:
+    """The ``(A*A,)`` float32 contact matrix on ``device``, with no round
+    trip: a tensor already there is used as it is; host data goes to the
+    card once per matrix and is kept (:func:`_contact_upload`)."""
+    if isinstance(contact, torch.Tensor) and contact.device == device:
+        flat = contact.to(torch.float32).reshape(-1).contiguous()
+    else:
+        flat = _contact_upload(_contact_tuple(contact), device)
+    if flat.numel() != n_age * n_age:
+        raise ValueError(f"contact has {flat.numel()} entries, not {n_age} x {n_age}")
+    return flat
+
+
+@functools.lru_cache(maxsize=16)
+def _contact_upload(contact: tuple[tuple[float, ...], ...], device: torch.device) -> torch.Tensor:
+    return torch.tensor(contact, dtype=torch.float32, device=device).reshape(-1)
+
 
 def _d_rows(n_age: int, n_strain: int) -> int:
     return n_age + 4 * n_age * n_strain
@@ -52,22 +120,19 @@ def _d_rows(n_age: int, n_strain: int) -> int:
 
 def pack_state(y0, batch: int, n_age: int = A_DIM, n_strain: int = K_DIM) -> torch.Tensor:
     """``(s (A,), e/i/r/c (A, K))`` -> packed ``(D, B)`` float32, broadcast."""
-    s, e, i, r, c = (torch.as_tensor(x) for x in y0)
-    flat = torch.cat([s.reshape(-1), e.reshape(-1), i.reshape(-1), r.reshape(-1), c.reshape(-1)])
+    flat = torch.cat([torch.as_tensor(x, dtype=torch.float32).reshape(-1) for x in y0])
     d = _d_rows(n_age, n_strain)
     if flat.shape[0] != d:
         raise ValueError(f"state does not match {n_age} ages x {n_strain} strains")
-    return flat.to(torch.float32)[:, None].expand(d, batch).contiguous()
+    return flat[:, None].expand(d, batch).contiguous()
 
 
 def pack_params(beta, sigma, gamma, omega, batch: int, n_strain: int = K_DIM) -> torch.Tensor:
     """Per-strain rates (each ``(K,)`` or ``(B, K)``) -> packed ``(4K, B)`` rows."""
 
     def rows(x):
-        x = torch.as_tensor(x).to(torch.float32)
-        if x.ndim == 1:
-            x = x[None, :].expand(batch, n_strain)
-        return x.T  # (K, B)
+        x = torch.as_tensor(x, dtype=torch.float32)
+        return x[:, None].expand(n_strain, batch) if x.ndim == 1 else x.T  # (K, B)
 
     return torch.cat([rows(beta), rows(sigma), rows(gamma), rows(omega)]).contiguous()
 
@@ -131,6 +196,8 @@ def _rhs_rows(y, contact, beta, sigma, gamma, omega, n_age, n_strain):
 
 
 def _contact_tuple(contact) -> tuple[tuple[float, ...], ...]:
+    """The contact matrix as nested Python floats (from a CUDA tensor this
+    waits for the card: the kernel routes use :func:`_contact_on`)."""
     return tuple(tuple(float(v) for v in row) for row in torch.as_tensor(contact).tolist())
 
 
@@ -243,17 +310,22 @@ def ensemble_solve_reference(
 def launch_multistrain_tsit5(
     y_packed: torch.Tensor,
     p_packed: torch.Tensor,
-    contact: tuple[tuple[float, ...], ...],
+    contact,
     *,
     dt: float,
     n_steps: int,
     save_stride: int,
     n_age: int,
     n_strain: int,
+    team: int | None = None,
+    threads: int | None = None,
 ) -> torch.Tensor:
     """Launch ``csrc/multistrain_tsit5.cu`` on packed CUDA inputs.
 
-    Adds one to ``launch_multistrain_tsit5.launches`` per launch.
+    ``contact`` is the ``(A, A)`` matrix, a tensor or nested floats;
+    ``team`` (lanes per member, one of :func:`teams`) and ``threads`` (a
+    block) default to :func:`pick_team` and :data:`THREADS`. Adds one to
+    ``launch_multistrain_tsit5.launches`` per launch.
     """
     if (n_age, n_strain) not in INSTANTIATED:
         raise ValueError(
@@ -268,13 +340,14 @@ def launch_multistrain_tsit5(
     for t in (y_packed, p_packed):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != device:
             raise ValueError("packed inputs must be contiguous float32 on one CUDA device")
+    team, threads = _launch_shape(batch, n_age, team, threads)
     n_saves = n_steps // save_stride + 1
-    contact_dev = torch.tensor(contact, dtype=torch.float32, device=device).reshape(-1)
+    contact_dev = _contact_on(contact, device, n_age)
     out = torch.empty((n_saves, d_rows, batch), dtype=torch.float32, device=device)
     lib = _build.load_library()
     with torch.cuda.device(device):
         rc = lib.dynode_multistrain_tsit5(
-            n_age, n_strain, y_packed.data_ptr(), p_packed.data_ptr(),
+            n_age, n_strain, team, threads, y_packed.data_ptr(), p_packed.data_ptr(),
             contact_dev.data_ptr(), out.data_ptr(), batch, dt, n_steps, save_stride,
             torch.cuda.current_stream(device).cuda_stream,
         )
@@ -299,6 +372,7 @@ def ensemble_solve_tsit5(
     duration: float,
     dt: float = 0.5,
     save_every: float = 1.0,
+    block_b: int | None = None,
     n_age: int = A_DIM,
     n_strain: int = K_DIM,
 ) -> torch.Tensor:
@@ -307,7 +381,11 @@ def ensemble_solve_tsit5(
     Rates may be ``(K,)`` (shared) or ``(B, K)`` (per member); ``contact`` is
     the ``(A, A)`` matrix. The route follows the device of ``y0`` and the
     rates (module docstring); use :func:`unpack_saves` on the result.
+    ``block_b`` is the JAX keyword (the TPU kernel's lane-block width): a
+    positive value changes nothing, since the kernel picks its own width
+    and masks a ragged batch (:func:`~.generic.check_block_b`).
     """
+    check_block_b(block_b)
     tensors = [torch.as_tensor(x) for x in (*y0, beta, sigma, gamma, omega)]
     device = _device.common_device(*tensors)
     if not _device.uses_kernel(device):
@@ -320,7 +398,7 @@ def ensemble_solve_tsit5(
     return launch_multistrain_tsit5(
         pack_state(y0, batch, n_age, n_strain),
         pack_params(beta, sigma, gamma, omega, batch, n_strain),
-        _contact_tuple(contact),
+        contact,
         dt=float(dt), n_steps=n_steps, save_stride=save_stride,
         n_age=n_age, n_strain=n_strain,
     )
@@ -350,14 +428,17 @@ def _live_rows_2d(n_age: int, n_strain: int) -> list[int]:
 
 
 def pack_state_2d(y0, batch: int, n_age: int = A_DIM, n_strain: int = K_DIM) -> torch.Tensor:
-    """``(s (A,), e/i/r/c (A, K))`` -> the aligned ``(D2, B)`` state, zero padding rows."""
+    """``(s (A,), e/i/r/c (A, K))`` -> the aligned ``(D2, B)`` state, zero padding rows.
+
+    Three device operations: one column of the groups and their padding,
+    then one broadcast copy over the batch.
+    """
     offs, d2 = _offsets_2d(n_age, n_strain)
-    parts = [torch.as_tensor(x) for x in y0]
-    buf = torch.zeros((d2, batch), dtype=torch.float32, device=parts[0].device)
-    for off, x in zip(offs, parts):
-        flat = x.to(torch.float32).reshape(-1)
-        buf[off : off + flat.shape[0]] = flat[:, None]
-    return buf
+    parts = [torch.as_tensor(x, dtype=torch.float32).reshape(-1) for x in y0]
+    pads = [end - off - x.shape[0] for off, end, x in zip(offs, (*offs[1:], d2), parts)]
+    zeros = parts[0].new_zeros(max(pads))
+    column = torch.cat([piece for x, pad in zip(parts, pads) for piece in (x, zeros[:pad])])
+    return column[:, None].expand(d2, batch).contiguous()
 
 
 def pack_rates_2d(beta, sigma, gamma, omega, batch: int,
@@ -367,16 +448,11 @@ def pack_rates_2d(beta, sigma, gamma, omega, batch: int,
     ``a*K + k`` of a section is ``rate[k]``."""
     ak = n_age * n_strain
     sak = _blk8(ak)
-
-    def section(x):
-        x = torch.as_tensor(x).to(torch.float32)
-        if x.ndim == 1:
-            x = x[None, :].expand(batch, n_strain)
-        out = torch.zeros((sak, batch), dtype=torch.float32, device=x.device)
-        out[:ak] = x.T.repeat(n_age, 1)
-        return out
-
-    return torch.cat([section(beta), section(sigma), section(gamma), section(omega)])
+    # (4, K, B): the per-strain rows, one section per rate; the aligned
+    # section repeats them for every age and ends in zero rows
+    rows = pack_params(beta, sigma, gamma, omega, batch, n_strain).reshape(4, n_strain, batch)
+    zeros = rows.new_zeros((4, sak - ak, batch))
+    return torch.cat([rows] * n_age + [zeros], dim=1).reshape(4 * sak, batch)
 
 
 def unpack_saves_2d(saves: torch.Tensor, n_age: int = A_DIM, n_strain: int = K_DIM):
@@ -481,17 +557,21 @@ def _solve_2d_reference(y_packed, p_packed, *, duration, dt, save_every, contact
 def launch_multistrain_tsit5_2d(
     y_packed: torch.Tensor,
     p_packed: torch.Tensor,
-    contact: tuple[tuple[float, ...], ...],
+    contact,
     *,
     dt: float,
     n_steps: int,
     save_stride: int,
     n_age: int,
     n_strain: int,
+    team: int | None = None,
+    threads: int | None = None,
 ) -> torch.Tensor:
     """Launch ``csrc/multistrain_tsit5_2d.cu`` on aligned CUDA inputs.
 
-    Adds one to ``launch_multistrain_tsit5_2d.launches`` per launch.
+    ``contact``, ``team`` and ``threads`` as for
+    :func:`launch_multistrain_tsit5`. Adds one to
+    ``launch_multistrain_tsit5_2d.launches`` per launch.
     """
     if (n_age, n_strain) not in INSTANTIATED:
         raise ValueError(
@@ -507,13 +587,14 @@ def launch_multistrain_tsit5_2d(
     for t in (y_packed, p_packed):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != device:
             raise ValueError("packed inputs must be contiguous float32 on one CUDA device")
+    team, threads = _launch_shape(batch, n_age, team, threads)
     n_saves = n_steps // save_stride + 1
-    contact_dev = torch.tensor(contact, dtype=torch.float32, device=device).reshape(-1)
+    contact_dev = _contact_on(contact, device, n_age)
     out = torch.empty((n_saves, d2, batch), dtype=torch.float32, device=device)
     lib = _build.load_library()
     with torch.cuda.device(device):
         rc = lib.dynode_multistrain_tsit5_2d(
-            n_age, n_strain, y_packed.data_ptr(), p_packed.data_ptr(),
+            n_age, n_strain, team, threads, y_packed.data_ptr(), p_packed.data_ptr(),
             contact_dev.data_ptr(), out.data_ptr(), batch, dt, n_steps, save_stride,
             torch.cuda.current_stream(device).cuda_stream,
         )
@@ -524,6 +605,36 @@ def launch_multistrain_tsit5_2d(
 
 
 launch_multistrain_tsit5_2d.launches = 0
+
+_KERNEL_NAME = re.compile(r"\d+(multistrain_tsit5(?:_2d)?_kernel)I((?:Li\d+E)+)")
+
+
+def kernel_label(mangled: str) -> str | None:
+    """``multistrain_tsit5_kernel<2,3,2>`` (A, K, team) for the mangled name of
+    a multi-strain kernel; None for any other symbol."""
+    m = _KERNEL_NAME.search(mangled)
+    if m is None:
+        return None
+    return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+
+
+def compile_facts(log: str, sass: dict | None) -> dict[str, dict]:
+    """Registers and spill bytes (``ptxas -v``, from the build log ``log``)
+    and the static SASS mix (``sass``, :func:`~._build.sass_counts` of the
+    library, or None where there is no ``cuobjdump``) of every compiled
+    multi-strain kernel, by :func:`kernel_label`."""
+    facts = {}
+    for name, resources in _build.ptxas_resources(log).items():
+        label = kernel_label(name)
+        if label is not None:
+            facts[label] = {**resources, "sass": None if sass is None else sass.get(name)}
+    return facts
+
+
+def kernel_name(kernel: str, n_age: int, n_strain: int, team: int) -> str:
+    """The :func:`kernel_label` of one instantiation: ``kernel`` is
+    ``"multistrain_tsit5"`` or ``"multistrain_tsit5_2d"``."""
+    return f"{kernel}_kernel<{n_age},{n_strain},{team}>"
 
 
 def ensemble_solve_tsit5_2d(
@@ -538,35 +649,44 @@ def ensemble_solve_tsit5_2d(
     duration: float,
     dt: float = 0.5,
     save_every: float = 1.0,
+    block_b: int = 256,
     n_age: int = A_DIM,
     n_strain: int = K_DIM,
 ) -> torch.Tensor:
     """The multi-strain ensemble on the aligned layout: ``(n_saves, D2, B)``.
 
-    Same arguments as :func:`ensemble_solve_tsit5` (no ``block_b``: the
-    kernel masks a ragged batch); returns the aligned buffer with zero
-    padding rows, D2 = 40 at (2, 3). Use :func:`unpack_saves_2d` on it.
+    Same arguments as :func:`ensemble_solve_tsit5` (``block_b`` defaults to
+    the JAX 256 and, positive, changes nothing); returns the aligned buffer
+    with zero padding rows, D2 = 40 at (2, 3). Use :func:`unpack_saves_2d`
+    on it.
     """
+    check_block_b(block_b)
     tensors = [torch.as_tensor(x) for x in (*y0, beta, sigma, gamma, omega)]
     device = _device.common_device(*tensors)
     y_packed = pack_state_2d(y0, batch, n_age, n_strain)
     p_packed = pack_rates_2d(beta, sigma, gamma, omega, batch, n_age, n_strain)
-    contact_tuple = _contact_tuple(contact)
     if not _device.uses_kernel(device):
         return _solve_2d_reference(
             y_packed, p_packed, duration=float(duration), dt=float(dt),
-            save_every=float(save_every), contact_tuple=contact_tuple,
+            save_every=float(save_every), contact_tuple=_contact_tuple(contact),
             n_age=n_age, n_strain=n_strain,
         )
     n_steps, save_stride, _ = _grid(duration, dt, save_every)
     return launch_multistrain_tsit5_2d(
-        y_packed, p_packed, contact_tuple, dt=float(dt), n_steps=n_steps,
+        y_packed, p_packed, contact, dt=float(dt), n_steps=n_steps,
         save_stride=save_stride, n_age=n_age, n_strain=n_strain,
     )
 
 
 __all__ = [
     "INSTANTIATED",
+    "TEAM_UP_TO",
+    "THREADS",
+    "compile_facts",
+    "kernel_label",
+    "kernel_name",
+    "pick_team",
+    "teams",
     "pack_state",
     "pack_params",
     "unpack_saves",

@@ -37,7 +37,7 @@ def _rel(got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-def _inputs(dev, n_age=2):
+def _inputs(dev, n_age=2, batch=B):
     if n_age == 2:
         params = model.multistrain_default_params(device=dev)
         y0 = model.multistrain_initial_state(device=dev)
@@ -46,24 +46,53 @@ def _inputs(dev, n_age=2):
         params = model.multistrain_default_params(
             r0s, (7.0, 6.0), (3.0, 2.5), (60.0, 80.0), n_age=3, device=dev)
         y0 = model.multistrain_initial_state(r0s, (0.4, 0.4, 0.2), device=dev)
-    scales = np.random.default_rng(7).uniform(0.6, 1.6, B)
+    scales = np.random.default_rng(7).uniform(0.6, 1.6, batch)
     beta = params.beta[None, :] * torch.as_tensor(scales, dtype=torch.float32, device=dev)[:, None]
     return params, y0, beta
 
 
+#: every (shape, lanes per member) the multi-strain launchers may use
+TEAMS = [(shape, team) for shape in ms.INSTANTIATED for team in ms.teams(shape[0])]
+TEAM_IDS = [f"{a}x{k}-team{t}" for (a, k), t in TEAMS]
+
+
+def _launch(kernel, y0, beta, params, n, shape, team):
+    """One launch of a multi-strain kernel ("row" or "2d") at ``team``,
+    with the plain version's result on the same inputs."""
+    n_age, n_strain = shape
+    rates = (beta, params.sigma, params.gamma, params.omega)
+    grid = dict(dt=0.5, n_steps=int(2 * DAYS), save_stride=2, n_age=n_age, n_strain=n_strain)
+    if kernel == "row":
+        y, p = ms.pack_state(y0, n, *shape), ms.pack_params(*rates, n, n_strain)
+        got = ms.launch_multistrain_tsit5(y, p, params.contact_matrix, team=team, **grid)
+        want = ms.ensemble_solve_reference(y0, *rates, params.contact_matrix, batch=n,
+                                           duration=DAYS, dt=0.5, n_age=n_age, n_strain=n_strain)
+    else:
+        y, p = ms.pack_state_2d(y0, n, *shape), ms.pack_rates_2d(*rates, n, *shape)
+        got = ms.launch_multistrain_tsit5_2d(y, p, params.contact_matrix, team=team, **grid)
+        want = ms._solve_2d_reference(y, p, duration=DAYS, dt=0.5, save_every=1.0,
+                                      contact_tuple=ms._contact_tuple(params.contact_matrix),
+                                      n_age=n_age, n_strain=n_strain)
+    return got, want
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ms.INSTANTIATED)
-def test_cuda_kernel_matches_plain_version(cuda, shape):
+@pytest.mark.parametrize("shape, team", TEAMS, ids=TEAM_IDS)
+def test_cuda_kernel_matches_plain_version(cuda, shape, team):
+    """The row kernel at every team width, and through its entry point
+    (the launcher's own choice of team)."""
     n_age, n_strain = shape
     params, y0, beta = _inputs(cuda, n_age)
-    args = (y0, beta, params.sigma, params.gamma, params.omega, params.contact_matrix)
-    kw = dict(batch=B, duration=DAYS, dt=0.5, n_age=n_age, n_strain=n_strain)
     before = ms.launch_multistrain_tsit5.launches
-    got = ms.ensemble_solve_tsit5(*args, **kw)
+    got, want = _launch("row", y0, beta, params, B, shape, team)
     assert ms.launch_multistrain_tsit5.launches == before + 1
-    want = ms.ensemble_solve_reference(*args, **kw)
     assert torch.isfinite(got).all()
     assert _rel(got, want) <= TOL
+    args = (y0, beta, params.sigma, params.gamma, params.omega, params.contact_matrix)
+    entry = ms.ensemble_solve_tsit5(*args, batch=B, duration=DAYS, dt=0.5, n_age=n_age,
+                                    n_strain=n_strain)
+    assert ms.launch_multistrain_tsit5.launches == before + 2
+    assert _rel(entry, want) <= TOL
 
 
 @pytest.mark.cuda
@@ -98,19 +127,29 @@ def test_triton_obs_saves_bf16_padded(cuda):
     assert _rel(got[:, :6], want[:, :6]) <= 1e-2
 
 
+#: ragged batches of the multi-strain kernels: each ends inside a warp at
+#: every team width (32, 16 or 10 members a warp) and inside a block
+RAGGED_CASES = ([("triton", (2, 3), None, B - 1)]
+                + [(kernel, shape, team, n) for kernel in ("cuda", "cuda_2d") for shape, team in TEAMS
+                   for n in (17, B - 1, 9983)])
+RAGGED_IDS = ["triton"] + [f"{kernel}-{a}x{k}-team{t}-B{n}" for kernel, (a, k), t, n in RAGGED_CASES[1:]]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["cuda", "triton"])
-def test_ragged_last_block_matches_plain_version(cuda, kernel):
-    """B = 4,095 is a multiple of neither the CUDA block (128 threads) nor the
-    Triton BLOCK (64), so each kernel runs its masked last block."""
-    n = B - 1
-    params, y0, beta = _inputs(cuda)
+@pytest.mark.parametrize("kernel, shape, team, n", RAGGED_CASES, ids=RAGGED_IDS)
+def test_ragged_last_block_matches_plain_version(cuda, kernel, shape, team, n):
+    """B = 4,095 is a multiple of neither the CUDA block nor the Triton BLOCK
+    (64), so each kernel runs its masked last block; B = 17 and 9,983 end
+    inside a warp of the CUDA kernels, whose idle lanes must store nothing
+    and leave their neighbours' shuffles intact. The 2-D kernel's padding
+    rows stay zero."""
+    params, y0, beta = _inputs(cuda, shape[0], max(n, B))
     beta = beta[:n]
-    if kernel == "cuda":
-        args = (y0, beta, params.sigma, params.gamma, params.omega, params.contact_matrix)
-        kw = dict(batch=n, duration=DAYS, dt=0.5)
-        got = ms.ensemble_solve_tsit5(*args, **kw)
-        want = ms.ensemble_solve_reference(*args, **kw)
+    if kernel != "triton":
+        got, want = _launch("row" if kernel == "cuda" else "2d", y0, beta, params, n, shape, team)
+        if kernel == "cuda_2d":
+            pad = sorted(set(range(got.shape[1])) - set(ms._live_rows_2d(*shape)))
+            assert not got[:, pad].any()
     else:
         rhs = ms.multistrain_rows_rhs(params.contact_matrix)
         y = ms.pack_state(y0, n)
@@ -236,25 +275,24 @@ def test_adaptive_kernel_non_finite_norm(cuda, method):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ms.INSTANTIATED)
-def test_2d_kernel_matches_plain_version_and_row_kernel(cuda, shape):
-    """B = 4,095 (a ragged last warp): the 2-D kernel against its plain
-    version, with zero padding rows, and against the row kernel after
-    unpacking (the same model in another expression order)."""
+@pytest.mark.parametrize("shape, team", TEAMS, ids=TEAM_IDS)
+def test_2d_kernel_matches_plain_version_and_row_kernel(cuda, shape, team):
+    """B = 4,095 (a ragged last warp): the 2-D kernel at every team width
+    against its plain version, with zero padding rows, through its entry
+    point (the launcher's own team) as well, and against the row kernel
+    after unpacking (the same model in another expression order)."""
     n_age, n_strain = shape
     params, y0, beta = _inputs(cuda, n_age)
     n = B - 1
     args = (y0, beta[:n], params.sigma, params.gamma, params.omega, params.contact_matrix)
     kw = dict(batch=n, duration=DAYS, dt=0.5, n_age=n_age, n_strain=n_strain)
     before = ms.launch_multistrain_tsit5_2d.launches
-    got = ms.ensemble_solve_tsit5_2d(*args, **kw)
+    got, want = _launch("2d", y0, beta[:n], params, n, shape, team)
     assert ms.launch_multistrain_tsit5_2d.launches == before + 1
-    want = ms._solve_2d_reference(
-        ms.pack_state_2d(y0, n, n_age, n_strain),
-        ms.pack_rates_2d(*args[1:5], n, n_age, n_strain), duration=DAYS, dt=0.5,
-        save_every=1.0, contact_tuple=ms._contact_tuple(params.contact_matrix),
-        n_age=n_age, n_strain=n_strain)
     assert torch.isfinite(got).all() and _rel(got, want) <= TOL
+    entry = ms.ensemble_solve_tsit5_2d(*args, **kw)
+    assert ms.launch_multistrain_tsit5_2d.launches == before + 2
+    assert _rel(entry, want) <= TOL
     pad = sorted(set(range(got.shape[1])) - set(ms._live_rows_2d(n_age, n_strain)))
     assert not got[:, pad].any()  # padding rows stay zero
     rows = ms.ensemble_solve_tsit5(*args, **kw)

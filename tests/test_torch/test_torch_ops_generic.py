@@ -168,3 +168,27 @@ def test_validation_shape_and_dtype():
     with pytest.raises(ValueError, match="save_dtype"):
         tg.ensemble_solve_kernel(sir_rows, torch.zeros(3, 8), duration=1.0, dt=0.5,
                                  save_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("block_b", [None, 8, 64])
+def test_block_b_keyword_takes_the_jax_call_form(block_b):
+    """``block_b`` is the JAX entry point's lane-block width: the port
+    accepts it, gives the result of the call without it (bit for bit: the
+    kernel picks its own width and masks a ragged batch) and agrees with
+    the JAX call of the same form within the tolerance of
+    ``test_methods_match_jax_on_sir`` (1e-5 relative)."""
+    y0, p = _sir_inputs(64, seed=11)
+    kw = dict(duration=20.0, dt=0.5, block_b=block_b)
+    got, want = _both(sir_rows, y0, p, **kw)
+    plain = tg.ensemble_solve_kernel(sir_rows, torch.as_tensor(y0), torch.as_tensor(p),
+                                     duration=20.0, dt=0.5)
+    assert torch.equal(got, plain)
+    assert np.max(np.abs(got.numpy() - want)) <= 1e-5 * np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("block_b", [0, -64])
+def test_block_b_must_be_positive(block_b):
+    y0, p = _sir_inputs(8, seed=12)
+    with pytest.raises(ValueError, match="block_b must be positive"):
+        tg.ensemble_solve_kernel(sir_rows, torch.as_tensor(y0), torch.as_tensor(p),
+                                 duration=2.0, dt=0.5, block_b=block_b)

@@ -138,3 +138,74 @@ def test_2d_kernel_rejects_uninstantiated_shape():
             torch.zeros(40, 8), torch.zeros(32, 8), ((1.0,) * 4,) * 4,
             dt=0.5, n_steps=2, save_stride=1, n_age=4, n_strain=1,
         )
+
+
+@pytest.mark.parametrize("block_b", [256, 8])
+def test_block_b_keyword_takes_the_jax_call_form(block_b):
+    """The JAX ``ensemble_solve_tsit5_2d(..., block_b=...)`` call form (its
+    default is 256) runs and gives the result of the call without it, bit
+    for bit, and agrees with the JAX call of the same form within 1e-5 (as
+    ``test_solve_2d_matches_jax``)."""
+    B = 64
+    y0, beta, rates, contact = _inputs((2, 3), B, seed=13)
+    kw = dict(batch=B, duration=10.0, dt=0.5)
+    got = tms.ensemble_solve_tsit5_2d(*_torch(y0, beta, rates, contact), block_b=block_b, **kw)
+    assert torch.equal(got, tms.ensemble_solve_tsit5_2d(*_torch(y0, beta, rates, contact), **kw))
+    want = np.asarray(jmp.ensemble_solve_tsit5_2d(y0, beta, *rates, contact, block_b=block_b, **kw))
+    assert _rel(got.numpy(), want) <= 1e-5
+
+
+@pytest.mark.parametrize("block_b", [0, -256])
+def test_block_b_must_be_positive(block_b):
+    y0, beta, rates, contact = _inputs((2, 3), 8, seed=13)
+    with pytest.raises(ValueError, match="block_b must be positive"):
+        tms.ensemble_solve_tsit5_2d(*_torch(y0, beta, rates, contact), batch=8, duration=2.0,
+                                    block_b=block_b)
+
+
+def _former_pack_state_2d(y0, batch, n_age, n_strain):
+    """``pack_state_2d`` as it was: a zero buffer and one slice assignment
+    per group."""
+    offs, d2 = tms._offsets_2d(n_age, n_strain)
+    parts = [torch.as_tensor(x) for x in y0]
+    buf = torch.zeros((d2, batch), dtype=torch.float32, device=parts[0].device)
+    for off, x in zip(offs, parts):
+        flat = x.to(torch.float32).reshape(-1)
+        buf[off : off + flat.shape[0]] = flat[:, None]
+    return buf
+
+
+def _former_pack_rates_2d(beta, sigma, gamma, omega, batch, n_age, n_strain):
+    """``pack_rates_2d`` as it was: per rate a zero section, the rates
+    repeated per age, then one concatenation."""
+    ak, sak = n_age * n_strain, tms._blk8(n_age * n_strain)
+
+    def section(x):
+        x = torch.as_tensor(x).to(torch.float32)
+        if x.ndim == 1:
+            x = x[None, :].expand(batch, n_strain)
+        out = torch.zeros((sak, batch), dtype=torch.float32, device=x.device)
+        out[:ak] = x.T.repeat(n_age, 1)
+        return out
+
+    return torch.cat([section(beta), section(sigma), section(gamma), section(omega)])
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_packing_matches_its_former_formulas(shape):
+    """The 2-D packing helpers, rewritten with fewer device operations,
+    return bit for bit what their former formulas returned: float32 and
+    float64 inputs, per-member and shared rates, a ragged width."""
+    A, K = shape
+    B = 13
+    for dtype in (np.float32, np.float64):
+        y0, beta, rates, _ = _inputs(shape, B, seed=21)
+        y0 = tuple(x.astype(dtype) for x in y0)
+        got = tms.pack_state_2d(y0, B, A, K)
+        want = _former_pack_state_2d(y0, B, A, K)
+        assert torch.equal(got, want) and got.is_contiguous() and got.dtype == torch.float32
+        for b in (beta.astype(dtype), beta[0].astype(dtype)):
+            args = (torch.as_tensor(b), *(torch.as_tensor(x.astype(dtype)) for x in rates))
+            got = tms.pack_rates_2d(*args, B, A, K)
+            want = _former_pack_rates_2d(*args, B, A, K)
+            assert torch.equal(got, want) and got.is_contiguous() and got.dtype == torch.float32
