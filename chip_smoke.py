@@ -63,7 +63,20 @@ compile per CUDA source, all started together; Triton's JIT), then:
     work, counted from the plain versions' operations on this run's inputs
     (and, for the adaptive kernels, their statistics), and its bound on the
     card, and the RK4 kernel with all four compartments saved in bf16 beside
-    its own bound.
+    its own bound;
+13. drives the ODE engine and ``simulate`` (eager PyTorch on the card, no
+    kernel of its own): (a) an adaptive float64 ``simulate`` of 300 days
+    against ``tests/golden/trajectories.npz`` (``test_golden.py``'s bound),
+    with the accepted and rejected steps of the same call on CPU tensors;
+    (b) ``simulate_ensemble`` lane-major at B = 9,984, Tsit5 at dt = 0.5,
+    against kernel #2 on the same inputs, and batch-leading against
+    lane-major on 1,024 members; (c) the fit's forward and gradient at
+    ``bench_nuts.py``'s 4,096 chains (100 days, the Poisson log-likelihood
+    of the daily incidence), finite, a float64 gradient on 4 members against
+    central differences, the forward and forward + backward times, peak
+    memory, and, from ``torch.profiler``, the device's idle share of one
+    forward and its kernel launches per step; (d) an exhausted step budget
+    (result 1, NaN tail).
 
 The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -104,6 +117,14 @@ TOL_ACCURACY = 5e-3  # adaptive vs dt = 0.05 constant step: max |d| / (1e-6 + |r
 SEIP_WIDE = 32768  # bench_seip.py's KERNEL_WIDE; the adaptive kernel also runs at twice it
 SEIP_RTOL, SEIP_ATOL = 1e-4, 1e-3  # bench_seip.py's adaptive tolerances
 TOL_SEIP_ACCURACY = 1e-2  # SEIP BS3 vs RK4 at dt = 0.05, C: max |d| / max |ref| (bench_seip.py)
+FIT_CHAINS = 4096  # bench_nuts.py NUM_CHAINS
+FIT_DAYS = 100  # bench_nuts.py DURATION
+FIT_TRUE_SCALES = (1.1, 0.95, 1.05)  # bench_nuts.py's synthetic data
+LAYOUT_B = 1024  # batch-leading against lane-major
+TOL_ENGINE = 1e-5  # simulate vs kernel #2 and layout vs layout: max |d| / max |ref|, float32
+GOLDEN_RTOL, GOLDEN_ATOL = 1e-5, 1e-6  # tests/test_dynamics/test_golden.py, float64 adaptive
+TOL_FD = 1e-4  # autograd vs central differences, float64: max |d| / max |fd|
+FD_STEP = 1e-6
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 without tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
@@ -207,6 +228,191 @@ def truncated_normal(rng, n, loc=1.0, scale=0.15, low=0.6, high=1.6) -> np.ndarr
         draw = rng.normal(loc, scale, 2 * n)
         out = np.concatenate([out, draw[(draw >= low) & (draw <= high)]])
     return out[:n]
+
+
+def engine_phase(dev, smi: str, rng) -> None:
+    """Phase 13: the ODE engine and ``simulate`` on the card (module docstring)."""
+    import torch
+    import torch.utils._pytree as tree
+
+    from dynode_tpu_torch import SolverParams, simulate, simulate_ensemble
+    from dynode_tpu_torch.models import multistrain as model
+    from dynode_tpu_torch.ode import RESULT_MAX_STEPS
+    from dynode_tpu_torch.ops import multistrain as ms
+
+    t_phase = time.perf_counter()
+    print(f"phase 13: the ODE engine and simulate, eager PyTorch on the card [{smi}]")
+
+    # (a) adaptive anchor, float64, and the same call on CPU tensors
+    golden = np.load(REPO / "tests" / "golden" / "trajectories.npz")["multistrain_c"]
+    anchor = {}
+    for where in (dev, torch.device("cpu")):
+        p = model.multistrain_default_params(dtype=torch.float64, device=where)
+        y = model.multistrain_initial_state(dtype=torch.float64, device=where)
+        t = time.perf_counter()
+        sol = simulate(model.multistrain_ode, 300, y, p, SolverParams(step_budget=512))
+        c = sol.ys[4].cpu().numpy()
+        anchor[where.type] = (sol, c, time.perf_counter() - t)
+    sol, c, wall = anchor[dev.type]
+    excess = float(np.max(np.abs(c - golden) - (GOLDEN_ATOL + GOLDEN_RTOL * np.abs(golden))))
+    steps = {k: (int(v[0].stats["num_accepted"]), int(v[0].stats["num_rejected"])) for k, v in anchor.items()}
+    print(f"  (a) simulate 300 days, float64, adaptive (grid engine, step_budget 512): result {int(sol.result)}, "
+          f"accepted / rejected on the card {steps[dev.type]}, on the CPU {steps['cpu']}; c vs golden: max "
+          f"|d| - (atol {GOLDEN_ATOL:g} + rtol {GOLDEN_RTOL:g} |ref|) = {excess:.3e} (<= 0); wall {wall:.2f} s "
+          f"on the card, {anchor['cpu'][2]:.2f} s on the CPU")
+    check(int(sol.result) == 0 and excess <= 0.0, f"simulate vs golden: excess {excess:.3e}")
+    check(steps[dev.type] == steps["cpu"], f"card and CPU took other steps: {steps}")
+    print(f"      (a) took {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) constant step at B = 9,984 against kernel #2, and the two layouts
+    base = model.multistrain_default_params(device=dev)
+    y0 = model.multistrain_initial_state(device=dev)
+
+    def batch_params(params, s):
+        """Every field batched on a leading member axis, beta scaled."""
+        pb = tree.tree_map(lambda leaf: leaf.expand((s.shape[0],) + leaf.shape), params)
+        return pb.replace(beta=params.beta[None, :] * (s if s.dim() == 2 else s[:, None]))
+
+    sp_c = SolverParams(constant_step_size=DT)
+    scales = torch.as_tensor(truncated_normal(rng, ENSEMBLE), dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lane = simulate_ensemble(model.multistrain_ode, int(DAYS), y0, batch_params(base, scales), sp_c,
+                             layout="lane_major")
+    torch.cuda.synchronize()
+    lane_s = time.perf_counter() - t
+    kern = ms.unpack_saves(ms.ensemble_solve_tsit5(
+        y0, base.beta[None, :] * scales[:, None], base.sigma, base.gamma, base.omega, base.contact_matrix,
+        batch=ENSEMBLE, duration=DAYS, dt=DT))
+    rel = max(rel_err(g.movedim(-1, 1), w)[1] for g, w in zip(lane.ys, kern))
+    print(f"  (b) simulate_ensemble lane_major B={ENSEMBLE}, {DAYS:.0f} days, Tsit5 dt={DT}: {lane_s:.2f} s; vs "
+          f"kernel #2 (multistrain_tsit5): max rel err {rel:.3e} (tol {TOL_ENGINE:.0e})")
+    check(all(bool(torch.isfinite(x).all()) for x in lane.ys), "non-finite lane-major saves")
+    check(rel <= TOL_ENGINE, f"simulate_ensemble vs kernel #2: rel err {rel:.3e}")
+    del kern
+    # the first LAYOUT_B members again, batch-leading: lane-major members
+    # share dt and nothing else, so the wide run holds their solves
+    t = time.perf_counter()
+    lead = simulate_ensemble(model.multistrain_ode, int(DAYS), y0, batch_params(base, scales[:LAYOUT_B]), sp_c)
+    torch.cuda.synchronize()
+    lead_s = time.perf_counter() - t
+    rel = max(rel_err(a, b[..., :LAYOUT_B].movedim(-1, 0))[1] for a, b in zip(lead.ys, lane.ys))
+    print(f"      batch_leading vs lane_major B={LAYOUT_B}: max rel err {rel:.3e} (tol {TOL_ENGINE:.0e}); "
+          f"batch_leading {lead_s:.2f} s")
+    check(rel <= TOL_ENGINE, f"batch_leading vs lane_major: rel err {rel:.3e}")
+    del lane, lead
+
+    print(f"      (a) and (b) took {time.perf_counter() - t_phase:.1f} s")
+
+    # (c) the fit's forward and gradient at bench_nuts.py's width
+    n_steps = int(round(FIT_DAYS / DT))
+    # bench_nuts.py's synthetic data, from a one-member solve on the CPU
+    truth = torch.tensor([FIT_TRUE_SCALES])
+    base_cpu = model.multistrain_default_params(device="cpu")
+    c_true = simulate_ensemble(model.multistrain_ode, FIT_DAYS, model.multistrain_initial_state(device="cpu"),
+                               batch_params(base_cpu, truth), sp_c, layout="lane_major",
+                               sub_save_indices=(4,)).ys[4][..., 0]
+    obs_np = rng.poisson(torch.clamp(torch.diff(c_true, dim=0), min=1e-6).double().numpy())  # (T - 1, A, K)
+
+    def loglik(params, y, s, obs):
+        """Per-chain Poisson log-likelihood of the daily incidence (bench_nuts.py:76-77)."""
+        c = simulate_ensemble(model.multistrain_ode, FIT_DAYS, y, batch_params(params, s), sp_c,
+                              layout="lane_major", sub_save_indices=(4,)).ys[4]  # (T, A, K, B)
+        lam = torch.clamp(torch.diff(c, dim=0), min=1e-6)
+        k = obs[..., None]
+        return (k * torch.log(lam) - lam - torch.lgamma(k + 1.0)).sum(dim=(0, 1, 2))
+
+    obs = torch.as_tensor(obs_np, dtype=torch.float32, device=dev)
+    fit_scales = torch.as_tensor(truncated_normal(rng, 3 * FIT_CHAINS, 1.0, 0.3, 0.5, 2.0).reshape(FIT_CHAINS, 3),
+                                 dtype=torch.float32, device=dev)
+
+    def forward():
+        with torch.no_grad():
+            return loglik(base, y0, fit_scales, obs).sum()
+
+    def forward_backward():
+        s = fit_scales.clone().requires_grad_(True)
+        loglik(base, y0, s, obs).sum().backward()
+        return s.grad
+
+    fwd_ms, ll = median_ms(forward)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)  # what the earlier phases still hold
+    fb_ms, grad = median_ms(forward_backward)  # each call frees what the one before held
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    check(bool(torch.isfinite(ll)) and bool(torch.isfinite(grad).all()), "non-finite fit value or gradient")
+    print(f"  (c) fit, {FIT_CHAINS} chains, {FIT_DAYS} days, dt={DT}, lane_major: log-likelihood {float(ll):.6e}, "
+          f"gradient {tuple(grad.shape)} finite; forward {fwd_ms:.1f} ms, forward + backward {fb_ms:.1f} ms (host "
+          f"clock, median of 3 after a warm-up); peak memory of forward + backward {peak / 2**20:.1f} MiB above "
+          f"the {held / 2**20:.0f} MiB held before [{smi}]")
+
+    # float64 gradient on 4 chains against central differences: the 4 chains
+    # and their 2 x 3 shifted copies go through one solve (chains are independent)
+    base64 = model.multistrain_default_params(dtype=torch.float64, device=dev)
+    y64 = model.multistrain_initial_state(dtype=torch.float64, device=dev)
+    s4 = fit_scales[:4].double().clone().requires_grad_(True)
+    shifts = torch.eye(3, dtype=torch.float64, device=dev) * FD_STEP
+    shifted = torch.cat([s4.detach() + sign * shifts[k] for k in range(3) for sign in (1.0, -1.0)])
+    per = loglik(base64, y64, torch.cat([s4, shifted]), obs.double())
+    per[:4].sum().backward()
+    per = per[4:].detach().reshape(3, 2, 4)
+    fd = ((per[:, 0] - per[:, 1]) / (2 * FD_STEP)).T  # (4, 3)
+    fd_rel = float((s4.grad - fd).abs().max() / fd.abs().max())
+    print(f"      float64 gradient on 4 chains vs central differences (h = {FD_STEP:g}): max rel err "
+          f"{fd_rel:.3e} (tol {TOL_FD:.0e})")
+    check(fd_rel <= TOL_FD, f"fit gradient vs finite differences: {fd_rel:.3e}")
+
+    print(f"      (a) to the gradient check took {time.perf_counter() - t_phase:.1f} s")
+
+    # the device's share of one forward, from a trace of the device alone
+    # (host events too would trace every one of the 100,000 operations twice)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        forward()
+        torch.cuda.synchronize()
+    # the raw device records: the profiler's event tree of 100,000 of them
+    # takes longer to build than the forward takes to run
+    on_card = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    if on_card:
+        busy_ms = sum(e.duration_ns() for e in on_card) / 1e6
+        idle = 1.0 - busy_ms / fwd_ms
+        print(f"      one forward traced: {len(on_card)} device operations, {len(on_card) / n_steps:.1f} per "
+              f"step; device busy {busy_ms:.1f} ms of the untraced {fwd_ms:.1f} ms: idle share {idle:.1%} "
+              f"[{smi}]")
+    else:
+        print("      one forward traced: the profiler saw no device time; idle share and launches not measured")
+
+    # (d) an exhausted step budget on the card
+    sol = simulate(model.multistrain_ode, FIT_DAYS, y0, base, SolverParams(step_budget=8))
+    tail = all(bool(torch.isnan(x[-1]).all()) for x in sol.ys)
+    print(f"  (d) step_budget 8 (buffered engine): result {int(sol.result)} (RESULT_MAX_STEPS = "
+          f"{RESULT_MAX_STEPS}), {int(sol.stats['num_steps'])} steps, NaN tail {tail}")
+    check(int(sol.result) == RESULT_MAX_STEPS and tail, "an exhausted budget did not flag and NaN-fill")
+    print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
+def wall_ms(fn):
+    """(wall ms of one call of ``fn``, its result)"""
+    import torch
+
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    last = out[-1] if isinstance(out, tuple) else out
+    float(last.reshape(-1)[-1])  # a host fetch of a scalar of the result
+    return (time.perf_counter() - t) * 1e3, out
+
+
+def median_ms(fn):
+    """(median wall ms of 3 calls after a warm-up, the last call's result)"""
+    wall_ms(fn)  # warm-up
+    walls = []
+    for _ in range(3):
+        wall, out = wall_ms(fn)
+        walls.append(wall)
+    return statistics.median(walls), out
 
 
 def main() -> int:
@@ -433,24 +639,6 @@ def main() -> int:
     del ends, s, e, i, r, c, mass
 
     # ---- 5. times, and the main path against the plain version ---------------
-    def wall_ms(fn):
-        """(wall ms of one call of ``fn``, its result)"""
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        last = out[-1] if isinstance(out, tuple) else out
-        float(last.reshape(-1)[-1])  # a host fetch of a scalar of the result
-        return (time.perf_counter() - t) * 1e3, out
-
-    def median_ms(fn):
-        """(median wall ms of 3 calls after a warm-up, the last call's result)"""
-        wall_ms(fn)  # warm-up
-        walls = []
-        for _ in range(3):
-            wall, out = wall_ms(fn)
-            walls.append(wall)
-        return statistics.median(walls), out
-
     def event_ms(fn, n=5) -> float:
         """Device time of one launch: CUDA events around n launches."""
         fn()
@@ -1001,6 +1189,9 @@ def main() -> int:
         "seip_bs3": (bs3_flops, seip_in + 4 * 2 * 2 * SEIP_WIDE + 2 * n_days * 128 * 2 * SEIP_WIDE
                      + 12 * len(att_w)),
     }
+
+    # ---- 13. the ODE engine and simulate ---------------------------------------
+    engine_phase(dev, smi, rng)
 
     # ---- the kernels' line: counts of this run's work and the card's bound ---
     obs_attempts = int((obs_stats["n_accepted"] + obs_stats["n_rejected"]).sum())

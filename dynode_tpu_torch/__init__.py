@@ -1,16 +1,17 @@
 """DynODE-TPU ported to PyTorch and CUDA for an NVIDIA H100.
 
 A second package beside ``dynode_tpu`` (JAX, the reference), ported slice by
-slice. So far it holds the multi-strain SEIRS scenario ensemble: the model
-(:mod:`.models.multistrain`), the RK tableaus (:mod:`.ode`), the carry-over
-of JAX values (:mod:`.convert`) and the four ensemble kernels with their
-plain versions (:mod:`.ops`): constant-step and adaptive solves of any
-rows-RHS, and the multi-strain solve on the row and the aligned 2-D layout.
-Constructors put their tensors on the card unless given ``device="cpu"``.
-The package imports ``torch`` and never ``jax``.
+slice. So far it holds the ODE engine (:mod:`.ode`: the RK solvers,
+controllers and :func:`diffeqsolve`), ``SolverParams`` (:mod:`.config`),
+:func:`simulate` and :func:`simulate_ensemble` (:mod:`.simulation`), the
+multi-strain SEIRS and SEIP models (:mod:`.models`), the carry-over of JAX
+values (:mod:`.convert`) and the six ensemble kernels with their plain
+versions (:mod:`.ops`). Constructors put their tensors on the card unless
+given ``device="cpu"``. The package imports ``torch`` and never ``jax``.
 """
 
-from . import convert, models, ode, ops, utils
+from . import config, convert, models, ode, ops, simulation, struct, utils
+from .config import SolverParams
 from .models.multistrain import (
     MultiStrainParams,
     multistrain_default_params,
@@ -18,6 +19,7 @@ from .models.multistrain import (
     multistrain_ode,
 )
 from .models.seip import SEIPParams, seip_default_params, seip_initial_state, seip_ode
+from .ode import diffeqsolve
 from .ops import (
     ensemble_solve_kernel,
     ensemble_solve_kernel_adaptive,
@@ -28,13 +30,21 @@ from .ops import (
     unpack_saves,
     unpack_saves_2d,
 )
+from .simulation import simulate, simulate_ensemble
 
 __all__ = [
+    "config",
     "convert",
     "models",
     "ode",
     "ops",
+    "simulation",
+    "struct",
     "utils",
+    "simulate",
+    "simulate_ensemble",
+    "SolverParams",
+    "diffeqsolve",
     "MultiStrainParams",
     "SEIPParams",
     "multistrain_default_params",

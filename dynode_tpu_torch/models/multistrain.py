@@ -16,13 +16,13 @@ sum, so it runs in full float32 on every device (no TF32 matmul path).
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from .. import _device
+from ..struct import pytree_dataclass
 
 #: defaults of ``dynode_tpu.models.multistrain.multistrain_config``
 DEFAULT_R0S = (2.0, 2.5, 1.8)
@@ -33,7 +33,7 @@ DEFAULT_AGE_DEMOGRAPHICS = (0.75, 0.25)
 DEFAULT_POPULATION = 1000.0
 
 
-@dataclass(frozen=True)
+@pytree_dataclass(frozen=True)
 class MultiStrainParams:
     """ODE parameters: per-strain rates ``(K,)`` (``beta`` may be ``(K, B)``
     in the ensemble form) and the ``(A, A)`` contact matrix."""

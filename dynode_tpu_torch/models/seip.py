@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from dataclasses import dataclass
 from itertools import combinations
 from typing import Sequence
 
@@ -37,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _device
+from ..struct import pytree_dataclass
 from ..utils.splines import evaluate_cubic_spline
 
 #: defaults of ``dynode_tpu.models.seip.seip_config`` and its two strains
@@ -62,7 +62,7 @@ DAILY_VAX_RATE = 2e-3
 I0_PROP = 1e-3
 
 
-@dataclass(frozen=True)
+@pytree_dataclass(frozen=True, static_fieldnames=("seasonal_vaccination",))
 class SEIPParams:
     """SEIP RHS parameters; the fields and shapes of the JAX ``SEIPParams``
     (``beta`` is ``(L,)``, or ``(L, B)`` in the ensemble form)."""

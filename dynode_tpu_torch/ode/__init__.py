@@ -1,19 +1,32 @@
-"""Explicit Runge-Kutta tableaus of the port."""
+"""The ODE engine of the port: RK solvers and tableaus, step-size
+controllers, save grids and :func:`diffeqsolve`."""
 
+from .controllers import (
+    AbstractStepSizeController,
+    ClipStepSizeController,
+    ConstantStepSize,
+    PIDController,
+)
+from .integrate import diffeqsolve
+from .saveat import SaveAt, SubSaveAt
+from .solution import RESULT_MAX_STEPS, RESULT_SUCCESS, Solution
 from .solvers import (
     METHODS,
     RK4_A,
     RK4_B,
     RK4_C,
+    AbstractSolver,
     Bosh3,
     Dopri5,
     Euler,
     Heun,
-    Tableau,
+    ODETerm,
     Tsit5,
 )
 
 __all__ = [
-    "Tableau", "Euler", "Heun", "Bosh3", "Tsit5", "Dopri5",
+    "diffeqsolve", "ODETerm", "AbstractSolver", "Euler", "Heun", "Bosh3", "Tsit5", "Dopri5",
     "RK4_A", "RK4_B", "RK4_C", "METHODS",
+    "AbstractStepSizeController", "ConstantStepSize", "PIDController", "ClipStepSizeController",
+    "SaveAt", "SubSaveAt", "Solution", "RESULT_SUCCESS", "RESULT_MAX_STEPS",
 ]

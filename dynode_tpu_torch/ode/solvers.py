@@ -1,52 +1,184 @@
-"""Explicit Runge-Kutta tableaus as plain float tuples.
+"""Explicit Runge-Kutta solvers: Butcher tableaus and the RK step.
 
-Port of the tableaus of ``dynode_tpu/ode/solvers.py`` (Euler, Heun, Bosh3,
-Tsit5, Dopri5) and the classic RK4 tableau of
-``dynode_tpu/ops/generic_pallas.py``. The coefficients are the same Python floats, bit for bit (the tests compare them
-with the JAX classes), because both the kernels and their plain versions
-round each coefficient to float32 exactly where the JAX kernels do.
+Port of ``dynode_tpu/ode/solvers.py`` (Euler, Heun, Bosh3, Tsit5, Dopri5)
+and the classic RK4 tableau of ``dynode_tpu/ops/generic_pallas.py``. Each
+solver is a class in JAX's form: its tableau is class attributes
+(``Tsit5.a``, ``Tsit5.b``, ... are the same Python floats as the JAX
+classes', bit for bit, because the kernels and their plain versions round
+each coefficient to float32 where the JAX kernels do), and an instance
+(``Tsit5()``) is what :func:`~dynode_tpu_torch.ode.integrate.diffeqsolve`
+and ``SolverParams`` take.
+
+:meth:`AbstractSolver.step` works on a tuple of tensors. ``t`` and ``dt``
+are tensors of a batch shape that leads every leaf of the state (``()``
+for one solve, ``(B,)`` for a batch-leading ensemble); each coefficient
+``dt * a_ij`` is formed first and broadcast over the state, in the JAX
+order of operations. The stage sums run once over the whole state, its
+leaves side by side in one tensor, rather than leaf by leaf as JAX's
+``tree_map`` does: each element takes the same operations in the same
+order, in a fifth of the launches for a five-compartment model.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from typing import Callable, Optional
+
+import torch
 
 
-@dataclass(frozen=True)
-class Tableau:
-    """Butcher tableau: nodes ``c``, stage rows ``a``, weights ``b``.
+class ODETerm:
+    """Wraps a vector field ``f(t, y, args) -> dy/dt``."""
 
-    ``e`` (``b - bhat``) is the embedded error weight row, where the scheme
-    has one.
+    def __init__(self, vector_field: Callable):
+        self.vector_field = vector_field
+
+    def vf(self, t, y, args):
+        """Evaluate the vector field at ``(t, y, args)``."""
+        return self.vector_field(t, y, args)
+
+
+def _bcast(coeff, leaf):
+    """``coeff`` (a tensor of the batch shape, or a number) shaped to
+    broadcast over ``leaf``, whose leading dimensions are that batch shape."""
+    if not hasattr(coeff, "dim") or coeff.dim() in (0, leaf.dim()):
+        return coeff
+    return coeff.reshape(coeff.shape + (1,) * (leaf.dim() - coeff.dim()))
+
+
+def _flatten(tree, nb: int):
+    """The leaves of ``tree`` side by side in one tensor, each flattened past
+    its ``nb`` leading batch dimensions."""
+    return torch.cat([leaf.reshape(leaf.shape[:nb] + (-1,)) for leaf in tree], dim=-1)
+
+
+def _unflatten(flat, like, nb: int):
+    """:func:`_flatten` undone: views of ``flat`` shaped as the leaves of ``like``."""
+    sizes = [math.prod(leaf.shape[nb:]) for leaf in like]
+    return tuple(part.reshape(leaf.shape) for part, leaf in zip(flat.split(sizes, dim=-1), like))
+
+
+def _muladd(acc, scaled):
+    """``acc + sum_i coeff_i * k_i`` over flattened states, in the order of
+    ``scaled``; ``acc=None`` starts from the first product."""
+    for coeff, k in scaled:
+        term = _bcast(coeff, k) * k
+        acc = term if acc is None else acc + term
+    return acc
+
+
+class AbstractSolver:
+    """An explicit RK solver defined by its Butcher tableau.
+
+    ``c``, ``a``, ``b``: nodes, stage rows and weights; ``e = b - bhat`` the
+    embedded error weights (``err = dt * sum_j e_j k_j``) or None;
+    ``order``; ``err_order``, the controller's exponent order; ``fsal``:
+    the last stage is ``f(t1, y1)`` and is carried to the next step.
     """
 
-    c: tuple[float, ...]
-    a: tuple[tuple[float, ...], ...]
-    b: tuple[float, ...]
-    e: tuple[float, ...] | None
+    c: tuple
+    a: tuple
+    b: tuple
+    e: Optional[tuple]
     order: int
     err_order: int
-    fsal: bool
+    fsal: bool = False
+
+    @property
+    def stages(self) -> int:
+        """Number of RK stages (length of ``b``)."""
+        return len(self.b)
+
+    def __hash__(self):
+        return hash(type(self))
+
+    def __eq__(self, other):
+        return type(self) is type(other)
+
+    def _stages_and_err(self, term: ODETerm, t, dt, y, args, f0, error: bool):
+        """``(flat stages, flat y, err, f1)`` of one step from ``(t, y)``."""
+        nb = dt.dim() if torch.is_tensor(dt) else 0
+        y_flat = _flatten(y, nb)
+        k = f0 if self.fsal and f0 is not None else term.vf(t, y, args)
+        ks = [_flatten(k, nb)]
+        for i in range(1, self.stages):
+            coeffs = [(dt * aij, ks[j]) for j, aij in enumerate(self.a[i - 1]) if aij != 0.0]
+            y_stage = _unflatten(_muladd(y_flat, coeffs), y, nb) if coeffs else y
+            k = term.vf(t + self.c[i] * dt, y_stage, args)
+            ks.append(_flatten(k, nb))
+        err = None
+        if self.e is not None and error:
+            flat = _muladd(None, [(dt * ej, ks[j]) for j, ej in enumerate(self.e) if ej != 0.0])
+            err = _unflatten(flat, y, nb)
+        # the last stage's own leaves, bit for bit: it is the next step's f0
+        f1 = k if self.fsal else None
+        return ks, y_flat, err, f1, nb
+
+    def _update(self, dt, ks, acc):
+        return _muladd(acc, [(dt * bj, ks[j]) for j, bj in enumerate(self.b) if bj != 0.0])
+
+    def step(self, term: ODETerm, t, dt, y, args, f0=None, error: bool = True):
+        """Advance one step: ``(y1, err, f1)``.
+
+        ``f0`` is the FSAL carry ``f(t, y)`` (evaluated when None); ``err``
+        is None for a solver without an error estimate, or with
+        ``error=False`` (a constant step, which does not read it), ``f1``
+        None for a solver that is not FSAL.
+        """
+        ks, y_flat, err, f1, nb = self._stages_and_err(term, t, dt, y, args, f0, error)
+        return _unflatten(self._update(dt, ks, y_flat), y, nb), err, f1
+
+    def step_inc(self, term: ODETerm, t, dt, y, args, f0=None, error: bool = True):
+        """Like :meth:`step`, but returns the increment
+        ``inc = dt * sum_j b_j k_j`` (``y1 = y + inc``) in place of ``y1``:
+        what compensated summation adds, since ``y1 - y`` has lost the low
+        bits it needs."""
+        ks, _, err, f1, nb = self._stages_and_err(term, t, dt, y, args, f0, error)
+        return _unflatten(self._update(dt, ks, None), y, nb), err, f1
 
 
-_BOSH3_B = (2 / 9, 1 / 3, 4 / 9, 0.0)
-_BOSH3_BHAT = (7 / 24, 1 / 4, 1 / 3, 1 / 8)
+class Euler(AbstractSolver):
+    """Forward Euler (no error estimate; constant-step only)."""
 
-#: Bogacki-Shampine 3(2), FSAL
-Bosh3 = Tableau(
-    c=(0.0, 0.5, 0.75, 1.0),
-    a=((0.5,), (0.0, 0.75), (2 / 9, 1 / 3, 4 / 9)),
-    b=_BOSH3_B,
-    e=tuple(bi - bh for bi, bh in zip(_BOSH3_B, _BOSH3_BHAT)),
-    order=3,
-    err_order=3,
-    fsal=True,
-)
+    c = (0.0,)
+    a = ()
+    b = (1.0,)
+    e = None
+    order = 1
+    err_order = 2
+    fsal = False
 
-#: Tsitouras 5(4), FSAL -- the default solver
-Tsit5 = Tableau(
-    c=(0.0, 0.161, 0.327, 0.9, 0.9800255409045097, 1.0, 1.0),
-    a=(
+
+class Heun(AbstractSolver):
+    """Heun 2(1) with embedded Euler error estimate."""
+
+    c = (0.0, 1.0)
+    a = ((1.0,),)
+    b = (0.5, 0.5)
+    e = (-0.5, 0.5)
+    order = 2
+    err_order = 2
+    fsal = False
+
+
+class Bosh3(AbstractSolver):
+    """Bogacki-Shampine 3(2), FSAL."""
+
+    c = (0.0, 0.5, 0.75, 1.0)
+    a = ((0.5,), (0.0, 0.75), (2 / 9, 1 / 3, 4 / 9))
+    b = (2 / 9, 1 / 3, 4 / 9, 0.0)
+    _bhat = (7 / 24, 1 / 4, 1 / 3, 1 / 8)
+    e = tuple(bi - bh for bi, bh in zip(b, _bhat))
+    order = 3
+    err_order = 3
+    fsal = True
+
+
+class Tsit5(AbstractSolver):
+    """Tsitouras 5(4), FSAL -- the default solver."""
+
+    c = (0.0, 0.161, 0.327, 0.9, 0.9800255409045097, 1.0, 1.0)
+    a = (
         (0.161,),
         (-0.008480655492356989, 0.335480655492357),
         (2.8971530571054935, -6.359448489975075, 4.3622954328695815),
@@ -71,8 +203,8 @@ Tsit5 = Tableau(
             -3.290069515436081,
             2.324710524099774,
         ),
-    ),
-    b=(
+    )
+    b = (
         0.09646076681806523,
         0.01,
         0.4798896504144996,
@@ -80,8 +212,8 @@ Tsit5 = Tableau(
         -3.290069515436081,
         2.324710524099774,
         0.0,
-    ),
-    e=(
+    )
+    e = (
         -0.00178001105222577714,
         -0.0008164344596567469,
         0.007880878010261995,
@@ -89,47 +221,38 @@ Tsit5 = Tableau(
         0.5823571654525552,
         -0.45808210592918697,
         0.015151515151515152,
-    ),
-    order=5,
-    err_order=5,
-    fsal=True,
-)
+    )
+    order = 5
+    err_order = 5
+    fsal = True
 
-#: forward Euler (no error estimate; constant-step only)
-Euler = Tableau(c=(0.0,), a=(), b=(1.0,), e=None, order=1, err_order=2, fsal=False)
 
-#: Heun 2(1) with embedded Euler error estimate
-Heun = Tableau(
-    c=(0.0, 1.0), a=((1.0,),), b=(0.5, 0.5), e=(-0.5, 0.5), order=2, err_order=2, fsal=False,
-)
+class Dopri5(AbstractSolver):
+    """Dormand-Prince 5(4), FSAL."""
 
-_DOPRI5_B = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0)
-_DOPRI5_BHAT = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200, 187 / 2100, 1 / 40)
-
-#: Dormand-Prince 5(4), FSAL
-Dopri5 = Tableau(
-    c=(0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0),
-    a=(
+    c = (0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0)
+    a = (
         (1 / 5,),
         (3 / 40, 9 / 40),
         (44 / 45, -56 / 15, 32 / 9),
         (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
         (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
         (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84),
-    ),
-    b=_DOPRI5_B,
-    e=tuple(bi - bh for bi, bh in zip(_DOPRI5_B, _DOPRI5_BHAT)),
-    order=5,
-    err_order=5,
-    fsal=True,
-)
+    )
+    b = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0)
+    _bhat = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200, 187 / 2100, 1 / 40)
+    e = tuple(bi - bh for bi, bh in zip(b, _bhat))
+    order = 5
+    err_order = 5
+    fsal = True
+
 
 # classic RK4 (the SEIP kernel's scheme: diagonal tableau, 4 live groups)
 RK4_A = ((0.5,), (0.0, 0.5), (0.0, 0.0, 1.0))
 RK4_B = (1 / 6, 1 / 3, 1 / 3, 1 / 6)
 RK4_C = (0.0, 0.5, 0.5, 1.0)
 
-#: method -> (a, b, c, n_stages) of the constant-step update. FSAL schemes
+#: method -> (a, b, c, n_stages) of the constant-step kernels. FSAL schemes
 #: are cut to the stages that reach the update: Tsit5's 7th and Bosh3's 4th
 #: stage have b == 0 and feed only the embedded error estimate.
 METHODS = {
@@ -138,15 +261,16 @@ METHODS = {
     "rk4": (RK4_A, RK4_B, RK4_C, 4),
 }
 
-#: adaptive method -> (a, b, e, c, n_stages, err_order) of the embedded pair.
-#: Both are FSAL: the last stage is f(t + dt, y_new), has b == 0 and feeds
-#: only the error estimate. bosh3 is the default of the adaptive solve.
+#: adaptive method -> (a, b, e, c, n_stages, err_order) of the adaptive
+#: kernels' embedded pair. Both are FSAL: the last stage is f(t + dt, y_new),
+#: has b == 0 and feeds only the error estimate. bosh3 is the default of the
+#: adaptive solve.
 ADAPTIVE_METHODS = {
     "tsit5": (Tsit5.a, Tsit5.b, Tsit5.e, Tsit5.c, 7, float(Tsit5.err_order)),
     "bosh3": (Bosh3.a, Bosh3.b, Bosh3.e, Bosh3.c, 4, float(Bosh3.err_order)),
 }
 
 __all__ = [
-    "Tableau", "Euler", "Heun", "Bosh3", "Tsit5", "Dopri5",
+    "ODETerm", "AbstractSolver", "Euler", "Heun", "Bosh3", "Tsit5", "Dopri5",
     "RK4_A", "RK4_B", "RK4_C", "METHODS", "ADAPTIVE_METHODS",
 ]

@@ -418,3 +418,63 @@ def test_seip_constructors_default_to_the_card(cuda):
     assert seip_model.seip_default_params(True).beta.is_cuda
     assert all(x.is_cuda for x in seip_model.seip_initial_state(True))
     assert all(x.is_cuda for x in convert.seip_state_from_numpy((np.ones((4, 4, 4, 4)),) * 4))
+
+
+def _batched(params, scales):
+    """Every field of ``params`` with a leading member axis, beta scaled."""
+    import torch.utils._pytree as tree
+
+    batch = tree.tree_map(lambda leaf: leaf.expand((scales.shape[0],) + leaf.shape), params)
+    return batch.replace(beta=params.beta[None, :] * (scales if scales.dim() == 2 else scales[:, None]))
+
+
+@pytest.mark.cuda
+def test_simulate_ensemble_matches_the_kernel_on_the_card(cuda):
+    """``simulate_ensemble`` lane-major (the eager engine, Tsit5 at dt =
+    0.5) against kernel #2 on 4,095 members, and batch-leading against
+    lane-major: max |d| <= 1e-5 * max |ref| per compartment."""
+    from dynode_tpu_torch import SolverParams, simulate_ensemble
+
+    params, y0, beta = _inputs(cuda, batch=B - 1)
+    scales = beta[:, 0] / params.beta[0]
+    sp = SolverParams(constant_step_size=0.5)
+    lane = simulate_ensemble(model.multistrain_ode, int(DAYS), y0, _batched(params, scales), sp,
+                             layout="lane_major")
+    kernel = ms.unpack_saves(ms.ensemble_solve_tsit5(
+        y0, beta, params.sigma, params.gamma, params.omega, params.contact_matrix,
+        batch=B - 1, duration=DAYS, dt=0.5))
+    for got, want in zip(lane.ys, kernel):
+        assert _rel(got.movedim(-1, 1), want) <= TOL
+    lead = simulate_ensemble(model.multistrain_ode, int(DAYS), y0, _batched(params, scales[:256]), sp)
+    for got, want in zip(lead.ys, lane.ys):
+        assert _rel(got, want[..., :256].movedim(-1, 0)) <= TOL
+
+
+@pytest.mark.cuda
+def test_fit_gradient_matches_finite_differences_on_the_card(cuda):
+    """The fit's gradient (``chip_smoke.py`` phase 13 (c)): the Poisson
+    log-likelihood of the daily incidence over 100 days, float64 on 4
+    chains, ``backward()`` against central differences within 1e-4."""
+    from dynode_tpu_torch import SolverParams, simulate_ensemble
+
+    params = model.multistrain_default_params(dtype=torch.float64, device=cuda)
+    y0 = model.multistrain_initial_state(dtype=torch.float64, device=cuda)
+    sp = SolverParams(constant_step_size=0.5)
+    obs = torch.as_tensor(np.random.default_rng(5).poisson(3.0, (100, 2, 3)), dtype=torch.float64, device=cuda)
+
+    def loglik(s):
+        c = simulate_ensemble(model.multistrain_ode, 100, y0, _batched(params, s), sp,
+                              layout="lane_major", sub_save_indices=(4,)).ys[4]
+        lam = torch.clamp(torch.diff(c, dim=0), min=1e-6)
+        return (obs[..., None] * torch.log(lam) - lam).sum(dim=(0, 1, 2))
+
+    s = torch.as_tensor(np.random.default_rng(6).uniform(0.7, 1.3, (4, 3)), device=cuda).requires_grad_(True)
+    loglik(s).sum().backward()
+    h = 1e-6
+    shifts = torch.eye(3, dtype=torch.float64, device=cuda) * h
+    with torch.no_grad():
+        per = loglik(torch.cat([s + sign * shifts[k] for k in range(3) for sign in (1.0, -1.0)]))
+    per = per.reshape(3, 2, 4)
+    fd = ((per[:, 0] - per[:, 1]) / (2 * h)).T
+    assert torch.isfinite(s.grad).all()
+    assert float((s.grad - fd).abs().max() / fd.abs().max()) <= 1e-4
