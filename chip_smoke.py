@@ -70,13 +70,30 @@ compile per CUDA source, all started together; Triton's JIT), then:
     with the accepted and rejected steps of the same call on CPU tensors;
     (b) ``simulate_ensemble`` lane-major at B = 9,984, Tsit5 at dt = 0.5,
     against kernel #2 on the same inputs, and batch-leading against
-    lane-major on 1,024 members; (c) the fit's forward and gradient at
-    ``bench_nuts.py``'s 4,096 chains (100 days, the Poisson log-likelihood
-    of the daily incidence), finite, a float64 gradient on 4 members against
-    central differences, the forward and forward + backward times, peak
-    memory, and, from ``torch.profiler``, the device's idle share of one
-    forward and its kernel launches per step; (d) an exhausted step budget
-    (result 1, NaN tail).
+    lane-major on 1,024 members; (c) ``bench_nuts.py``'s lane-major fit
+    potential at its 4,096 chains (100 days), built as the bench builds it
+    from the port's config and ``dist``: ``multistrain_config`` ->
+    ``multistrain_odeparams``, a ``TruncatedNormal`` prior moved to
+    unconstrained space by ``biject_to`` and its Jacobian, a centred
+    ``Poisson`` likelihood, the chains drawn from the prior with a CUDA
+    generator; finite, a float64 gradient on 4 chains against central
+    differences, the forward and forward + backward times, the prior and
+    Jacobian's share of them, peak memory, and, from ``torch.profiler``, the
+    device's idle share of one forward and its kernel launches per step;
+    (d) an exhausted step budget (result 1, NaN tail);
+14. drives the configs to the kernels and ``dist`` on the card: (a)
+    ``multistrain_odeparams(multistrain_config())`` equals
+    ``multistrain_default_params()`` bit for bit, kernel #2 at B = 9,984
+    gives equal saves from both, and the Poisson log-likelihood of its daily
+    incidence matches the engine's likelihood term of 13 (c) on 64 chains
+    (1e-5); (b) ``seip_config(seasonal_vaccination=True)`` ->
+    ``seip_odeparams`` -> kernel #4 at B = 32,768 (draws from
+    ``dist.Uniform(0.85, 1.2)`` on a CUDA generator) equals the same call on
+    ``seip_default_params(True)`` bit for bit; (c) every family's
+    ``log_prob`` on CUDA float64 tensors against the CPU (1e-12), and 2**20
+    draws of each from a CUDA generator: in the support, equal bits from
+    equal seeds, the sample mean (median for the Cauchy pair) within 5
+    standard errors.
 
 The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -86,6 +103,7 @@ exits non-zero and prints no result. It imports no JAX.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -120,11 +138,17 @@ TOL_SEIP_ACCURACY = 1e-2  # SEIP BS3 vs RK4 at dt = 0.05, C: max |d| / max |ref|
 FIT_CHAINS = 4096  # bench_nuts.py NUM_CHAINS
 FIT_DAYS = 100  # bench_nuts.py DURATION
 FIT_TRUE_SCALES = (1.1, 0.95, 1.05)  # bench_nuts.py's synthetic data
+FIT_PRIOR = (1.0, 0.3, 0.5, 2.0)  # bench_nuts.py: TruncatedNormal(loc, scale, low, high) of the R0 scales
+SCENARIO_PRIOR = (1.0, 0.15, 0.6, 1.6)  # examples/ensemble_scenarios.py's TruncatedNormal
 LAYOUT_B = 1024  # batch-leading against lane-major
 TOL_ENGINE = 1e-5  # simulate vs kernel #2 and layout vs layout: max |d| / max |ref|, float32
 GOLDEN_RTOL, GOLDEN_ATOL = 1e-5, 1e-6  # tests/test_dynamics/test_golden.py, float64 adaptive
 TOL_FD = 1e-4  # autograd vs central differences, float64: max |d| / max |fd|
 FD_STEP = 1e-6
+FIT_CHECK_CHAINS = 64  # kernel #2's likelihood against the engine's
+TOL_LIKELIHOOD = 1e-5  # that check: max |d| / max |engine|, float32
+TOL_DIST_LOG_PROB = 1e-12  # log_prob on CUDA vs CPU tensors, float64
+DIST_DRAWS = 2**20  # draws of each family from a CUDA generator
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 without tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
@@ -220,22 +244,79 @@ def rel_err(got, want) -> tuple[float, float]:
     return abs_err, abs_err / float(want.abs().max())
 
 
-def truncated_normal(rng, n, loc=1.0, scale=0.15, low=0.6, high=1.6) -> np.ndarray:
-    """``n`` draws of TruncatedNormal(loc, scale, low, high) by rejection,
-    the prior of ``examples/ensemble_scenarios.py``."""
-    out = np.empty(0)
-    while out.size < n:
-        draw = rng.normal(loc, scale, 2 * n)
-        out = np.concatenate([out, draw[(draw >= low) & (draw <= high)]])
-    return out[:n]
+def scenario_scales(gen, n: int):
+    """``n`` R0 scales from TruncatedNormal(1, 0.15, 0.6, 1.6), the prior of
+    ``examples/ensemble_scenarios.py``, drawn with the port's ``dist`` from
+    ``gen`` (on its device, float32)."""
+    from dynode_tpu_torch import dist
+
+    loc, scale, low, high = SCENARIO_PRIOR
+    return dist.TruncatedNormal(loc, scale, low=low, high=high).sample(gen, (n,))
 
 
-def engine_phase(dev, smi: str, rng) -> None:
-    """Phase 13: the ODE engine and ``simulate`` on the card (module docstring)."""
+def fit_potential(obs, *, days=FIT_DAYS, dtype=None, device=None):
+    """``bench_nuts.py``'s ``build_lane_major_potential`` on the port.
+
+    The model comes from ``multistrain_config(solver_params=
+    SolverParams(constant_step_size=0.5))``, ``multistrain_odeparams`` and the
+    config's initializer; the prior of the three R0 scales is
+    ``dist.TruncatedNormal(1, 0.3, low=0.5, high=2.0)``, moved to
+    unconstrained space by ``biject_to(prior.support)`` and its
+    ``log_abs_det_jacobian``; the likelihood is ``dist.Poisson`` of the daily
+    incidence, centred on the saturated log-likelihood. ``obs`` is ``(days,
+    A, K)``. Returns a namespace of ``potential(z)`` ((C, 3) unconstrained ->
+    (C,)), its parts ``prior_term(z)`` -> (scales, log prior + log |J|) and
+    ``loglik(c)`` ((C, T, A, K) cumulative incidence -> (C,)), the
+    ``prior`` and its ``transform``.
+    """
+    import types
+
+    import torch
+
+    from dynode_tpu_torch import SolverParams, dist, simulate
+    from dynode_tpu_torch.models import multistrain as model
+
+    dtype = dtype or torch.float32
+    cfg = model.multistrain_config(solver_params=SolverParams(constant_step_size=DT))
+    base = model.multistrain_odeparams(cfg, dtype=dtype, device=device)
+    y0 = model.multistrain_initial_state(cfg, dtype=dtype, device=device)
+    sp = cfg.parameters.solver_params
+    loc, scale, low, high = FIT_PRIOR
+    ones = torch.ones(3, dtype=dtype, device=base.beta.device)
+    prior = dist.TruncatedNormal(loc=loc * ones, scale=scale * ones, low=low, high=high)
+    transform = dist.biject_to(prior.support)
+    obs_f = torch.as_tensor(obs, dtype=dtype, device=base.beta.device)
+    center = dist.Poisson(torch.clamp(obs_f, min=1e-6)).log_prob(obs_f)
+
+    def prior_term(zb):
+        scales = transform(zb)
+        lp = prior.log_prob(scales).sum(-1)
+        return scales, lp + transform.log_abs_det_jacobian(zb, scales).sum(-1)
+
+    def loglik(c):
+        inc = torch.clamp(torch.diff(c, dim=1), min=1e-6)
+        return (dist.Poisson(inc).log_prob(obs_f[None]) - center[None]).sum(dim=(1, 2, 3))
+
+    def potential(zb):
+        n = zb.shape[0]
+        scales, lp = prior_term(zb)
+        pb = base.replace(beta=base.beta[:, None] * scales.T)  # (K, C)
+        sol = simulate(model.multistrain_ode_ensemble, days, model.multistrain_ensemble_state(y0, n), pb, sp,
+                       sub_save_indices=(4,))
+        return -(lp + loglik(sol.ys[4].movedim(-1, 0)))
+
+    return types.SimpleNamespace(potential=potential, prior_term=prior_term, loglik=loglik, prior=prior,
+                                 transform=transform, base=base, y0=y0)
+
+
+def engine_phase(dev, smi: str, gen):
+    """Phase 13: the ODE engine and ``simulate`` on the card (module
+    docstring). Returns the fit of (c) and its chains' positions for
+    phase 14."""
     import torch
     import torch.utils._pytree as tree
 
-    from dynode_tpu_torch import SolverParams, simulate, simulate_ensemble
+    from dynode_tpu_torch import SolverParams, dist, simulate, simulate_ensemble
     from dynode_tpu_torch.models import multistrain as model
     from dynode_tpu_torch.ode import RESULT_MAX_STEPS
     from dynode_tpu_torch.ops import multistrain as ms
@@ -274,7 +355,7 @@ def engine_phase(dev, smi: str, rng) -> None:
         return pb.replace(beta=params.beta[None, :] * (s if s.dim() == 2 else s[:, None]))
 
     sp_c = SolverParams(constant_step_size=DT)
-    scales = torch.as_tensor(truncated_normal(rng, ENSEMBLE), dtype=torch.float32, device=dev)
+    scales = scenario_scales(gen, ENSEMBLE)
     torch.cuda.synchronize()
     t = time.perf_counter()
     lane = simulate_ensemble(model.multistrain_ode, int(DAYS), y0, batch_params(base, scales), sp_c,
@@ -304,60 +385,66 @@ def engine_phase(dev, smi: str, rng) -> None:
 
     print(f"      (a) and (b) took {time.perf_counter() - t_phase:.1f} s")
 
-    # (c) the fit's forward and gradient at bench_nuts.py's width
+    # (c) bench_nuts.py's lane-major fit potential at its width, built from
+    # the port's config and dist
     n_steps = int(round(FIT_DAYS / DT))
-    # bench_nuts.py's synthetic data, from a one-member solve on the CPU
-    truth = torch.tensor([FIT_TRUE_SCALES])
-    base_cpu = model.multistrain_default_params(device="cpu")
-    c_true = simulate_ensemble(model.multistrain_ode, FIT_DAYS, model.multistrain_initial_state(device="cpu"),
-                               batch_params(base_cpu, truth), sp_c, layout="lane_major",
-                               sub_save_indices=(4,)).ys[4][..., 0]
-    obs_np = rng.poisson(torch.clamp(torch.diff(c_true, dim=0), min=1e-6).double().numpy())  # (T - 1, A, K)
-
-    def loglik(params, y, s, obs):
-        """Per-chain Poisson log-likelihood of the daily incidence (bench_nuts.py:76-77)."""
-        c = simulate_ensemble(model.multistrain_ode, FIT_DAYS, y, batch_params(params, s), sp_c,
-                              layout="lane_major", sub_save_indices=(4,)).ys[4]  # (T, A, K, B)
-        lam = torch.clamp(torch.diff(c, dim=0), min=1e-6)
-        k = obs[..., None]
-        return (k * torch.log(lam) - lam - torch.lgamma(k + 1.0)).sum(dim=(0, 1, 2))
-
-    obs = torch.as_tensor(obs_np, dtype=torch.float32, device=dev)
-    fit_scales = torch.as_tensor(truncated_normal(rng, 3 * FIT_CHAINS, 1.0, 0.3, 0.5, 2.0).reshape(FIT_CHAINS, 3),
-                                 dtype=torch.float32, device=dev)
+    # bench_nuts.py's synthetic data: Poisson counts of its forward at the true scales, on the CPU
+    cfg = model.multistrain_config(solver_params=sp_c)
+    base_cpu = model.multistrain_odeparams(cfg, device="cpu")
+    c_true = simulate(model.multistrain_ode, FIT_DAYS, model.multistrain_initial_state(cfg, device="cpu"),
+                      base_cpu.replace(beta=base_cpu.beta * torch.tensor(FIT_TRUE_SCALES)), sp_c,
+                      sub_save_indices=(4,)).ys[4]
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    obs = dist.Poisson(torch.clamp(torch.diff(c_true, dim=0), min=1e-6)).sample(cpu_gen)  # (T - 1, A, K)
+    fit = fit_potential(obs, device=dev)
+    # the chains' positions: prior draws on the card, moved to unconstrained space
+    fit_z = fit.transform.inv(fit.prior.sample(gen, (FIT_CHAINS,)))
 
     def forward():
         with torch.no_grad():
-            return loglik(base, y0, fit_scales, obs).sum()
+            return fit.potential(fit_z).sum()
 
     def forward_backward():
-        s = fit_scales.clone().requires_grad_(True)
-        loglik(base, y0, s, obs).sum().backward()
-        return s.grad
+        z = fit_z.clone().requires_grad_(True)
+        fit.potential(z).sum().backward()
+        return z.grad
 
-    fwd_ms, ll = median_ms(forward)
+    def prior_forward():
+        with torch.no_grad():
+            return fit.prior_term(fit_z)[1]
+
+    def prior_forward_backward():
+        z = fit_z.clone().requires_grad_(True)
+        fit.prior_term(z)[1].sum().backward()
+        return z.grad
+
+    fwd_ms, pot = median_ms(forward)
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)  # what the earlier phases still hold
     fb_ms, grad = median_ms(forward_backward)  # each call frees what the one before held
     peak = torch.cuda.max_memory_allocated(dev) - held
-    check(bool(torch.isfinite(ll)) and bool(torch.isfinite(grad).all()), "non-finite fit value or gradient")
-    print(f"  (c) fit, {FIT_CHAINS} chains, {FIT_DAYS} days, dt={DT}, lane_major: log-likelihood {float(ll):.6e}, "
-          f"gradient {tuple(grad.shape)} finite; forward {fwd_ms:.1f} ms, forward + backward {fb_ms:.1f} ms (host "
-          f"clock, median of 3 after a warm-up); peak memory of forward + backward {peak / 2**20:.1f} MiB above "
-          f"the {held / 2**20:.0f} MiB held before [{smi}]")
+    prior_ms, _ = median_ms(prior_forward)
+    prior_fb_ms, _ = median_ms(prior_forward_backward)
+    check(bool(torch.isfinite(pot)) and bool(torch.isfinite(grad).all()), "non-finite fit value or gradient")
+    print(f"  (c) bench_nuts.py's lane-major potential from multistrain_config, TruncatedNormal prior through "
+          f"biject_to and the centred Poisson likelihood: {FIT_CHAINS} chains, {FIT_DAYS} days, dt={DT}: "
+          f"potential sum {float(pot):.6e}, gradient {tuple(grad.shape)} finite; forward {fwd_ms:.1f} ms, "
+          f"forward + backward {fb_ms:.1f} ms (host clock, median of 3 after a warm-up); of which the prior "
+          f"and Jacobian alone: forward {prior_ms:.3f} ms, forward + backward {prior_fb_ms:.3f} ms; peak "
+          f"memory of forward + backward {peak / 2**20:.1f} MiB above the {held / 2**20:.0f} MiB held before "
+          f"[{smi}]")
 
     # float64 gradient on 4 chains against central differences: the 4 chains
     # and their 2 x 3 shifted copies go through one solve (chains are independent)
-    base64 = model.multistrain_default_params(dtype=torch.float64, device=dev)
-    y64 = model.multistrain_initial_state(dtype=torch.float64, device=dev)
-    s4 = fit_scales[:4].double().clone().requires_grad_(True)
+    fit64 = fit_potential(obs, dtype=torch.float64, device=dev)
+    z4 = fit_z[:4].double().clone().requires_grad_(True)
     shifts = torch.eye(3, dtype=torch.float64, device=dev) * FD_STEP
-    shifted = torch.cat([s4.detach() + sign * shifts[k] for k in range(3) for sign in (1.0, -1.0)])
-    per = loglik(base64, y64, torch.cat([s4, shifted]), obs.double())
+    shifted = torch.cat([z4.detach() + sign * shifts[k] for k in range(3) for sign in (1.0, -1.0)])
+    per = fit64.potential(torch.cat([z4, shifted]))
     per[:4].sum().backward()
     per = per[4:].detach().reshape(3, 2, 4)
     fd = ((per[:, 0] - per[:, 1]) / (2 * FD_STEP)).T  # (4, 3)
-    fd_rel = float((s4.grad - fd).abs().max() / fd.abs().max())
+    fd_rel = float((z4.grad - fd).abs().max() / fd.abs().max())
     print(f"      float64 gradient on 4 chains vs central differences (h = {FD_STEP:g}): max rel err "
           f"{fd_rel:.3e} (tol {TOL_FD:.0e})")
     check(fd_rel <= TOL_FD, f"fit gradient vs finite differences: {fd_rel:.3e}")
@@ -391,6 +478,226 @@ def engine_phase(dev, smi: str, rng) -> None:
           f"{RESULT_MAX_STEPS}), {int(sol.stats['num_steps'])} steps, NaN tail {tail}")
     check(int(sol.result) == RESULT_MAX_STEPS and tail, "an exhausted budget did not flag and NaN-fill")
     print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return fit, fit_z
+
+
+def in_support(constraint, x):
+    """Whether every value of ``x`` lies in the closure of ``constraint``
+    (a float32 draw of a positive family may round to 0)."""
+    import torch
+
+    from dynode_tpu_torch.dist import constraints as C
+
+    x = x.double()
+    integral = bool((x == torch.round(x)).all())
+    if isinstance(constraint, C._Simplex):
+        return bool((x >= 0).all()) and bool(((x.sum(-1) - 1.0).abs() < 1e-5).all())
+    if isinstance(constraint, C.IntegerNonnegative):
+        return integral and bool((x >= 0).all())
+    if isinstance(constraint, C.IntegerInterval):
+        high = math.inf if constraint.high is None else constraint.high
+        return integral and bool(((x >= constraint.low) & (x <= high)).all())
+    if isinstance(constraint, C.Interval):
+        return bool(((x >= constraint.low) & (x <= constraint.high)).all())
+    if isinstance(constraint, C.GreaterThan):
+        return bool((x >= constraint.low).all())
+    if isinstance(constraint, (C._Positive, C._Nonnegative)):
+        return bool(((x >= 0) & torch.isfinite(x)).all())
+    if isinstance(constraint, C._UnitInterval):
+        return bool(((x >= 0) & (x <= 1)).all())
+    return bool(torch.isfinite(x).all())
+
+
+def dist_families(dtype, device):
+    """One distribution of each family, its parameters as ``dtype`` tensors
+    on ``device``; with the centre its draws are held to: ("mean", mean,
+    variance or None) or, for the Cauchy pair, ("median", median, its
+    standard error per draw)."""
+    import torch
+
+    from dynode_tpu_torch import dist
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    def mean(d):
+        try:
+            var = d.variance
+        except NotImplementedError:
+            var = None
+        return ("mean", d.mean, var)
+
+    fams = {
+        "Normal": dist.Normal(t(0.5), t(2.0)),
+        "LogNormal": dist.LogNormal(t(0.1), t(0.4)),
+        "HalfNormal": dist.HalfNormal(t(1.5)),
+        "Cauchy": dist.Cauchy(t(0.3), t(2.0)),
+        "HalfCauchy": dist.HalfCauchy(t(1.2)),
+        "StudentT": dist.StudentT(t(5.0), t(0.5), t(2.0)),
+        "Uniform": dist.Uniform(t(-1.0), t(3.0)),
+        "Exponential": dist.Exponential(t(2.5)),
+        "Gamma": dist.Gamma(t(2.5), t(1.5)),
+        "Beta": dist.Beta(t(2.0), t(3.0)),
+        "TruncatedNormal": dist.TruncatedNormal(t(1.0), t(0.3), low=0.5, high=2.0),
+        "TruncatedNormal_right_tail": dist.TruncatedNormal(t(0.0), t(1.0), low=8.0, high=30.0),
+        "Dirichlet": dist.Dirichlet(t([1.5, 2.0, 0.5])),
+        "MultivariateNormal": dist.MultivariateNormal(t([0.5, -1.0]), t([[1.0, 0.0], [0.5, 2.0]])),
+        "Poisson": dist.Poisson(t(3.5)),
+        "Bernoulli": dist.Bernoulli(probs=t(0.3)),
+        "Binomial": dist.Binomial(t(10.0), t(0.35)),
+        "NegativeBinomial": dist.NegativeBinomial(t(4.0), t(2.5)),
+        "Categorical": dist.Categorical(probs=t([0.1, 0.2, 0.3, 0.4])),
+        "Multinomial": dist.Multinomial(10, t([0.2, 0.3, 0.5])),
+        "BetaBinomial": dist.BetaBinomial(t(2.0), t(3.0), t(12.0)),
+        "ZeroInflatedPoisson": dist.ZeroInflatedPoisson(t(0.3), t(4.0)),
+        "ZeroInflatedNegativeBinomial": dist.ZeroInflatedNegativeBinomial(t(0.2), t(3.0), t(2.0)),
+    }
+    out = []
+    for name, d in fams.items():
+        if name == "Cauchy":
+            centre = ("median", d.loc, math.pi * d.scale / 2)
+        elif name == "HalfCauchy":
+            centre = ("median", d.scale, math.pi * d.scale / 2)
+        elif name == "TruncatedNormal_right_tail":
+            # its ``mean`` is inf, as in the JAX package (ndtr(30) - ndtr(8)
+            # rounds to 0); the draws are held to the Mills-ratio mean
+            a = torch.tensor(8.0, dtype=torch.float64)
+            centre = ("mean", float(torch.exp(-0.5 * a * a - 0.5 * math.log(2 * math.pi)
+                                              - torch.special.log_ndtr(-a))), None)
+        else:
+            centre = mean(d)
+        out.append((name, d, centre))
+    return out
+
+
+def check_draws(name, d, centre, gen, seed: int, n: int) -> str:
+    """Draw ``n`` samples of ``d`` from ``gen`` seeded with ``seed`` twice:
+    equal bits, every draw in the support, the sample mean (median for the
+    Cauchy pair) within 5 standard errors of the distribution's. Returns a
+    summary; raises on a failed check."""
+    import torch
+
+    gen.manual_seed(seed)
+    x = d.sample(gen, (n,))
+    gen.manual_seed(seed)
+    check(torch.equal(x, d.sample(gen, (n,))), f"{name}: equal seeds drew other bits")
+    check(in_support(d.support, x), f"{name}: a draw outside the support {d.support!r}")
+    kind, want, spread = centre
+    x = x.double()
+    if kind == "median":
+        got = x.median(dim=0).values
+        se = torch.as_tensor(spread, dtype=torch.float64) / math.sqrt(n)
+    else:
+        got = x.mean(dim=0)
+        var = x.var(dim=0) if spread is None else torch.as_tensor(spread, dtype=torch.float64)
+        se = torch.sqrt(var / n)
+    want = torch.as_tensor(want, dtype=torch.float64, device=got.device)
+    dev_se = float(((got - want).abs() / se.to(got.device)).max())
+    check(dev_se <= 5.0, f"{name}: sample {kind} {got.tolist()} is {dev_se:.2f} standard errors from {want.tolist()}")
+    return f"{kind} {dev_se:.2f} SE"
+
+
+def config_phase(dev, smi: str, gen, fit, fit_z) -> dict:
+    """Phase 14: config to kernels #2 and #4, and ``dist`` on the card
+    (module docstring). Returns the launches of its two kernel paths."""
+    import torch
+
+    from dynode_tpu_torch import SolverParams, dist
+    from dynode_tpu_torch.models import multistrain as model
+    from dynode_tpu_torch.models import seip as seip_model
+    from dynode_tpu_torch.ops import multistrain as ms
+    from dynode_tpu_torch.ops import seip as tsp
+
+    t_phase = time.perf_counter()
+    print(f"phase 14: config to kernels #2 and #4, and dist on the card [{smi}]")
+
+    # (a) kernel #2 from the config, against the config-free defaults
+    cfg = model.multistrain_config()
+    p_cfg, y_cfg = model.multistrain_odeparams(cfg, device=dev), model.multistrain_initial_state(cfg, device=dev)
+    p_def, y_def = model.multistrain_default_params(device=dev), model.multistrain_initial_state(device=dev)
+    fields = ("beta", "sigma", "gamma", "omega", "contact_matrix")
+    same = all(torch.equal(getattr(p_cfg, f), getattr(p_def, f)) for f in fields)
+    same_y = all(torch.equal(a, b) for a, b in zip(y_cfg, y_def))
+    print(f"  (a) multistrain_odeparams(multistrain_config()) == multistrain_default_params(): {same}; "
+          f"initial states equal: {same_y}")
+    check(same and same_y, "config-built multi-strain params or state differ from the defaults")
+    draws = scenario_scales(gen, ENSEMBLE)
+
+    def solve(p, y):
+        return ms.ensemble_solve_tsit5(y, p.beta[None, :] * draws[:, None], p.sigma, p.gamma, p.omega,
+                                       p.contact_matrix, batch=ENSEMBLE, duration=DAYS, dt=DT)
+
+    torch.cuda.synchronize()
+    ms.launch_multistrain_tsit5.launches = 0
+    saves_cfg, saves_def = solve(p_cfg, y_cfg), solve(p_def, y_def)
+    torch.cuda.synchronize()
+    launches = {"multistrain_tsit5": ms.launch_multistrain_tsit5.launches}
+    print(f"      kernel #2 at B={ENSEMBLE}, {DAYS:.0f} days, from both: saves equal bit for bit "
+          f"{torch.equal(saves_cfg, saves_def)}; launches {launches['multistrain_tsit5']}")
+    check(launches["multistrain_tsit5"] > 0, "kernel #2 did not launch from the config-built params")
+    check(torch.equal(saves_cfg, saves_def), "kernel #2's saves differ between config-built and default params")
+    del saves_cfg, saves_def
+
+    # the Poisson log-likelihood of kernel #2's daily incidence against the
+    # engine's likelihood term of phase 13 (c), on 64 of its chains
+    z = fit_z[:FIT_CHECK_CHAINS]
+    with torch.no_grad():
+        scales, lp = fit.prior_term(z)
+        ll_engine = -fit.potential(z) - lp
+        ms.launch_multistrain_tsit5.launches = 0
+        kern = ms.unpack_saves(ms.ensemble_solve_tsit5(
+            fit.y0, fit.base.beta[None, :] * scales, fit.base.sigma, fit.base.gamma, fit.base.omega,
+            fit.base.contact_matrix, batch=FIT_CHECK_CHAINS, duration=float(FIT_DAYS), dt=DT))
+        ll_kernel = fit.loglik(kern[4].movedim(1, 0))  # (C, T, A, K)
+    ll_rel = float((ll_kernel - ll_engine).abs().max() / ll_engine.abs().max())
+    print(f"      Poisson log-likelihood of kernel #2's daily incidence vs the engine's potential term, "
+          f"{FIT_CHECK_CHAINS} chains, {FIT_DAYS} days: max rel err {ll_rel:.3e} (tol {TOL_LIKELIHOOD:.0e}); "
+          f"launches {ms.launch_multistrain_tsit5.launches}")
+    check(ms.launch_multistrain_tsit5.launches > 0, "kernel #2 did not launch for the likelihood check")
+    check(ll_rel <= TOL_LIKELIHOOD, f"kernel #2 likelihood vs the engine: rel err {ll_rel:.3e}")
+
+    # (b) kernel #4 from seip_config, as bench_seip.py builds it
+    scfg = seip_model.seip_config(seasonal_vaccination=True, solver_params=SolverParams(constant_step_size=DT))
+    sp_cfg, sy_cfg = seip_model.seip_odeparams(scfg, device=dev), seip_model.seip_initial_state(scfg, device=dev)
+    sp_def, sy_def = seip_model.seip_default_params(True, device=dev), seip_model.seip_initial_state(True, device=dev)
+    seip_draws = dist.Uniform(0.85, 1.2).sample(gen, (SEIP_WIDE,))
+    torch.cuda.synchronize()
+    tsp.launch_seip_rk4.launches = 0
+    (c_cfg,) = tsp.seip_ensemble_solve(sy_cfg, sp_cfg, seip_draws, duration=DAYS, dt=DT, save=(3,))
+    (c_def,) = tsp.seip_ensemble_solve(sy_def, sp_def, seip_draws, duration=DAYS, dt=DT, save=(3,))
+    torch.cuda.synchronize()
+    launches["seip_rk4"] = tsp.launch_seip_rk4.launches
+    same_seip = torch.equal(c_cfg, c_def)
+    print(f"  (b) seip_config(seasonal_vaccination=True) -> seip_odeparams -> kernel #4 at B={SEIP_WIDE}, draws "
+          f"Uniform(0.85, 1.2): C saves equal to seip_default_params(True)'s bit for bit {same_seip}; launches "
+          f"{launches['seip_rk4']}")
+    check(launches["seip_rk4"] > 0, "kernel #4 did not launch from the config-built params")
+    check(same_seip and bool(torch.isfinite(c_cfg).all()), "kernel #4's saves differ or are not finite")
+    del c_cfg, c_def
+
+    # (c) dist on the card: log_prob against the CPU in float64, draws
+    t_dist = time.perf_counter()
+    cpu = torch.device("cpu")
+    worst = (0.0, "")
+    summary = []
+    for (name, d_card, centre), (_, d_cpu, _) in zip(dist_families(torch.float64, dev),
+                                                    dist_families(torch.float64, cpu)):
+        gen.manual_seed(SEED)
+        x = d_card.sample(gen, (4096,))
+        got, want = d_card.log_prob(x), d_cpu.log_prob(x.cpu())
+        rel = float(((got.cpu() - want).abs() / want.abs().clamp(min=1e-300)).max())
+        worst = max(worst, (rel, name))
+        check(rel <= TOL_DIST_LOG_PROB, f"{name}: log_prob on the card vs the CPU, rel err {rel:.3e}")
+    for name, d, centre in dist_families(torch.float32, dev):
+        summary.append(f"{name} {check_draws(name, d, centre, gen, SEED, DIST_DRAWS)}")
+    torch.cuda.synchronize()
+    print(f"  (c) dist: log_prob of {len(summary)} families on CUDA float64 vs the CPU: max rel err {worst[0]:.3e} "
+          f"({worst[1]}) "
+          f"(tol {TOL_DIST_LOG_PROB:.0e}); {DIST_DRAWS} float32 draws each from a CUDA generator, all in the "
+          f"support, equal bits from equal seeds, centre within 5 SE: {', '.join(summary)}; "
+          f"{time.perf_counter() - t_dist:.1f} s")
+    print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def wall_ms(fn):
@@ -460,6 +767,8 @@ def main() -> int:
 
     # ---- inputs ------------------------------------------------------------
     rng = np.random.default_rng(SEED)
+    cuda_gen = torch.Generator(device=dev)
+    cuda_gen.manual_seed(SEED)
     base = model.multistrain_default_params(device=dev)
     y0 = model.multistrain_initial_state(device=dev)
     A, K = ms.A_DIM, ms.K_DIM
@@ -587,8 +896,8 @@ def main() -> int:
 
     # ---- 4. the main path at full size -------------------------------------
     print(f"phase 4: main path, B={ENSEMBLE} (CUDA kernel) and B={WIDE} (Triton kernel)")
-    scales = truncated_normal(rng, ENSEMBLE)
-    scales_wide = truncated_normal(rng, WIDE)
+    scales = scenario_scales(cuda_gen, ENSEMBLE)
+    scales_wide = scenario_scales(cuda_gen, WIDE)
     beta = scaled_beta(base, scales)
     beta_wide = scaled_beta(base, scales_wide)
     y_wide = ms.pack_state(y0, WIDE)
@@ -762,7 +1071,7 @@ def main() -> int:
 
     # accuracy against an independent solve: the constant-step kernel at dt = 0.05
     m = 2048
-    beta_acc = scaled_beta(base, truncated_normal(rng, m))
+    beta_acc = scaled_beta(base, scenario_scales(cuda_gen, m))
     y_s = ms.pack_state(y0, m)
     p_s = ms.pack_params(beta_acc, base.sigma, base.gamma, base.omega, m)
     ref = gen.ensemble_solve_kernel(rhs_ms, y_s, p_s, duration=DAYS, dt=0.05)
@@ -805,7 +1114,7 @@ def main() -> int:
     # ---- 8. the main path of the new kernels ----------------------------------
     print(f"phase 8: main path, adaptive kernel at B={MID} (all rows, bf16) and B={WIDE} "
           f"(c rows, bf16, padded), 2-D kernel at B={ENSEMBLE}")
-    beta_mid = scaled_beta(base, truncated_normal(rng, MID))
+    beta_mid = scaled_beta(base, scenario_scales(cuda_gen, MID))
     y_mid = ms.pack_state(y0, MID)
     p_mid = ms.pack_params(beta_mid, base.sigma, base.gamma, base.omega, MID)
     bf16_kw = dict(save_dtype=torch.bfloat16)
@@ -1191,7 +1500,10 @@ def main() -> int:
     }
 
     # ---- 13. the ODE engine and simulate ---------------------------------------
-    engine_phase(dev, smi, rng)
+    fit, fit_z = engine_phase(dev, smi, cuda_gen)
+
+    # ---- 14. config to kernels, and dist on the card -----------------------------
+    config_launches = config_phase(dev, smi, cuda_gen, fit, fit_z)
 
     # ---- the kernels' line: counts of this run's work and the card's bound ---
     obs_attempts = int((obs_stats["n_accepted"] + obs_stats["n_rejected"]).sum())
@@ -1242,6 +1554,8 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": None, "batch": times[name][2],
             "kernel_event_ms": device_ms[name],
         })
+    for name, n in config_launches.items():  # phase 14's path from the configs
+        kernels[list(meta).index(name)]["config_path_launches"] = n
     kernels[list(meta).index("rk_solve_adaptive")].update(adaptive_facts)
     kernels[list(meta).index("multistrain_tsit5")].update(row_facts)
     kernels[list(meta).index("multistrain_tsit5_2d")].update(facts_2d)

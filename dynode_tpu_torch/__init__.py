@@ -1,24 +1,81 @@
 """DynODE-TPU ported to PyTorch and CUDA for an NVIDIA H100.
 
 A second package beside ``dynode_tpu`` (JAX, the reference), ported slice by
-slice. So far it holds the ODE engine (:mod:`.ode`: the RK solvers,
-controllers and :func:`diffeqsolve`), ``SolverParams`` (:mod:`.config`),
-:func:`simulate` and :func:`simulate_ensemble` (:mod:`.simulation`), the
-multi-strain SEIRS and SEIP models (:mod:`.models`), the carry-over of JAX
-values (:mod:`.convert`) and the six ensemble kernels with their plain
-versions (:mod:`.ops`). Constructors put their tensors on the card unless
-given ``device="cpu"``. The package imports ``torch`` and never ``jax``.
+slice. So far it holds the distributions (:mod:`.dist`, sampled with a
+``torch.Generator``), the config layer without pydantic (:mod:`.config`),
+the ODE engine (:mod:`.ode`: the RK solvers, controllers and
+:func:`diffeqsolve`), :func:`simulate` and :func:`simulate_ensemble`
+(:mod:`.simulation`), the multi-strain SEIRS and SEIP models with their
+config-based constructors (:mod:`.models`), the carry-over of JAX values
+(:mod:`.convert`) and the six ensemble kernels with their plain versions
+(:mod:`.ops`). Constructors put their tensors on the card unless given
+``device="cpu"``. The package imports ``torch`` and never ``jax`` or
+``pydantic``.
 """
 
-from . import config, convert, models, ode, ops, simulation, struct, utils
-from .config import SolverParams
+from . import config, convert, dist, models, ode, ops, simulation, struct, utils
+from .config import (
+    AgeBin,
+    Bin,
+    Compartment,
+    DeterministicParameter,
+    Dimension,
+    DiscretizedPositiveIntBin,
+    FullStratifiedImmuneHistoryDimension,
+    ImmuneHistoryDimension,
+    Initializer,
+    LastStrainImmuneHistoryDimension,
+    Params,
+    PlaceholderSample,
+    SamplePlaceholderError,
+    SimulationConfig,
+    SolverParams,
+    Strain,
+    TransmissionParams,
+    VaccinationDimension,
+    WaneBin,
+    WaneDimension,
+    get_dynode_init_date_flag,
+    set_dynode_init_date_flag,
+    simulation_day,
+)
 from .models.multistrain import (
+    MultiStrainInitializer,
     MultiStrainParams,
+    multistrain_config,
     multistrain_default_params,
     multistrain_initial_state,
     multistrain_ode,
+    multistrain_odeparams,
 )
-from .models.seip import SEIPParams, seip_default_params, seip_initial_state, seip_ode
+from .models.seip import (
+    SEIPInitializer,
+    SEIPParams,
+    seip_config,
+    seip_default_params,
+    seip_initial_state,
+    seip_ode,
+    seip_odeparams,
+)
+from .struct import pytree_dataclass
+from .typing import (
+    CompartmentGradients,
+    CompartmentState,
+    CompartmentTimeseries,
+    DynodeName,
+    ObservedData,
+    ODE_Eqns,
+    UnitIntervalFloat,
+)
+from .utils import (
+    base_equation,
+    conditional_knots,
+    drop_keys_with_substring,
+    evaluate_cubic_spline,
+    flatten_list_parameters,
+    identify_distribution_indexes,
+    vectorize_objects,
+)
 from .ode import diffeqsolve
 from .ops import (
     ensemble_solve_kernel,
@@ -35,6 +92,7 @@ from .simulation import simulate, simulate_ensemble
 __all__ = [
     "config",
     "convert",
+    "dist",
     "models",
     "ode",
     "ops",
@@ -44,9 +102,52 @@ __all__ = [
     "simulate",
     "simulate_ensemble",
     "SolverParams",
+    "SimulationConfig",
+    "Initializer",
+    "Compartment",
+    "Strain",
+    "Dimension",
+    "VaccinationDimension",
+    "ImmuneHistoryDimension",
+    "FullStratifiedImmuneHistoryDimension",
+    "LastStrainImmuneHistoryDimension",
+    "WaneDimension",
+    "Bin",
+    "WaneBin",
+    "DiscretizedPositiveIntBin",
+    "AgeBin",
+    "Params",
+    "TransmissionParams",
+    "DeterministicParameter",
+    "PlaceholderSample",
+    "SamplePlaceholderError",
+    "simulation_day",
+    "set_dynode_init_date_flag",
+    "get_dynode_init_date_flag",
+    "pytree_dataclass",
+    "CompartmentState",
+    "CompartmentGradients",
+    "CompartmentTimeseries",
+    "DynodeName",
+    "ObservedData",
+    "ODE_Eqns",
+    "UnitIntervalFloat",
+    "base_equation",
+    "conditional_knots",
+    "evaluate_cubic_spline",
+    "vectorize_objects",
+    "flatten_list_parameters",
+    "drop_keys_with_substring",
+    "identify_distribution_indexes",
     "diffeqsolve",
     "MultiStrainParams",
+    "MultiStrainInitializer",
     "SEIPParams",
+    "SEIPInitializer",
+    "multistrain_config",
+    "multistrain_odeparams",
+    "seip_config",
+    "seip_odeparams",
     "multistrain_default_params",
     "multistrain_initial_state",
     "multistrain_ode",

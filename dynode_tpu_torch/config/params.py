@@ -1,69 +1,23 @@
-"""``SolverParams``: how the ODE engine integrates.
+"""Parameter containers: SolverParams, TransmissionParams, Params.
 
-Port of ``SolverParams`` from ``dynode_tpu/config/params.py`` as a plain
-dataclass: the same fields, defaults and checks, without pydantic. Each
-field is coerced as pydantic's lax mode coerces it (an integral float to
-an int, a number string to a number, ...), and a value pydantic refuses
-raises ``ValueError`` (pydantic's ``ValidationError`` is one too). The
-rest of the JAX config layer is not ported yet.
+Port of ``dynode_tpu/config/params.py`` on :class:`~._model.Model`: the
+same fields, defaults and checks, without pydantic. Each field is coerced
+as pydantic's lax mode coerces it (an integral float to an int, a number
+string to a number, ...), and a value pydantic refuses raises
+``ValueError`` (pydantic's ``ValidationError`` is one too).
 """
 
 from __future__ import annotations
 
-import dataclasses
-import math
-import numbers
-from dataclasses import dataclass, field
-from typing import List, Optional
-
+from .. import _validate as V
 from ..ode.solvers import AbstractSolver, Tsit5
-
-_TRUE = {"1", "on", "t", "true", "y", "yes"}
-_FALSE = {"0", "off", "f", "false", "n", "no"}
-
-
-def _as_float(name: str, value) -> float:
-    if isinstance(value, str):
-        try:
-            return float(value)
-        except ValueError:
-            raise ValueError(f"{name}: {value!r} is not a number") from None
-    if isinstance(value, numbers.Real):
-        return float(value)
-    raise ValueError(f"{name}: {value!r} is not a number")
+from ..dist import Distribution
+from ._model import Field, Model, model_validator
+from .links import DeterministicParameter
+from .strains import ARRAY_LIKE, Strain
 
 
-def _as_int(name: str, value) -> int:
-    if isinstance(value, str):
-        try:
-            return int(value)
-        except ValueError:
-            raise ValueError(f"{name}: {value!r} is not an integer") from None
-    if isinstance(value, numbers.Integral):
-        return int(value)
-    if isinstance(value, numbers.Real) and math.isfinite(value) and float(value).is_integer():
-        return int(value)
-    raise ValueError(f"{name}: {value!r} is not an integer")
-
-
-def _as_bool(name: str, value) -> bool:
-    if isinstance(value, bool):
-        return value
-    if isinstance(value, numbers.Integral) and value in (0, 1):
-        return bool(value)
-    if isinstance(value, str) and value.lower() in _TRUE | _FALSE:
-        return value.lower() in _TRUE
-    raise ValueError(f"{name}: {value!r} is not a boolean")
-
-
-def _positive(name: str, value):
-    if not value > 0:
-        raise ValueError(f"{name} must be > 0, got {value!r}")
-    return value
-
-
-@dataclass
-class SolverParams:
+class SolverParams(Model):
     """Solver, tolerances and step policy of :func:`~dynode_tpu_torch.simulate`.
 
     - ``solver_method``: an explicit RK solver instance (Tsit5 by default).
@@ -82,40 +36,76 @@ class SolverParams:
     - ``compensated_summation``: Kahan-compensated state accumulation.
     """
 
-    solver_method: AbstractSolver = field(default_factory=Tsit5)
-    ode_solver_rel_tolerance: float = 1e-5
-    ode_solver_abs_tolerance: float = 1e-6
-    max_steps: int = int(1e6)
-    constant_step_size: float = 0
-    discontinuity_points: List[float] = field(default_factory=list)
-    step_budget: Optional[int] = None
-    steps_per_save: Optional[int] = None
-    compensated_summation: bool = False
-
-    def __post_init__(self):
-        if not isinstance(self.solver_method, AbstractSolver):
-            raise ValueError(f"solver_method: {self.solver_method!r} is not a solver instance")
-        for name in ("ode_solver_rel_tolerance", "ode_solver_abs_tolerance"):
-            setattr(self, name, _positive(name, _as_float(name, getattr(self, name))))
-        self.max_steps = _positive("max_steps", _as_int("max_steps", self.max_steps))
-        step = _as_float("constant_step_size", self.constant_step_size)
-        if not step >= 0:
-            raise ValueError(f"constant_step_size must be >= 0, got {step!r}")
-        self.constant_step_size = step
-        for name in ("step_budget", "steps_per_save"):
-            value = getattr(self, name)
-            if value is not None:
-                setattr(self, name, _positive(name, _as_int(name, value)))
-        points = self.discontinuity_points
-        if points is None or isinstance(points, (str, bytes, dict)):
-            raise ValueError(f"discontinuity_points: {points!r} is not a list of numbers")
-        self.discontinuity_points = [_as_float("discontinuity_points", p) for p in points]
-        self.compensated_summation = _as_bool("compensated_summation", self.compensated_summation)
-
-    def model_copy(self, *, update: Optional[dict] = None) -> "SolverParams":
-        """A copy with the fields of ``update`` replaced (pydantic's
-        ``model_copy``); the copy is checked as a new instance is."""
-        return dataclasses.replace(self, **(update or {}))
+    solver_method = Field(V.instance_of(AbstractSolver), default_factory=Tsit5)
+    ode_solver_rel_tolerance = Field(V.PositiveFloat, 1e-5)
+    ode_solver_abs_tolerance = Field(V.PositiveFloat, 1e-6)
+    max_steps = Field(V.PositiveInt, int(1e6))
+    constant_step_size = Field(V.NonNegativeFloat, 0)
+    discontinuity_points = Field(V.list_of(V.float_), default_factory=list)
+    step_budget = Field(V.optional(V.PositiveInt), None)
+    steps_per_save = Field(V.optional(V.PositiveInt), None)
+    compensated_summation = Field(V.bool_, False)
 
 
-__all__ = ["SolverParams"]
+def _strains_nonempty(strains):
+    if not strains:
+        raise ValueError("strains field must contain at least one Strain.")
+    return strains
+
+
+def _optional_fields_consistent(strains):
+    intro_ages = [s.introduction_ages for s in strains if s.is_introduced]
+    if not all(x == intro_ages[0] for x in intro_ages):
+        raise ValueError("currently DynODE requires all strains have matching introduction_ages.")
+    for field_name in ("exposed_to_infectious", "vaccine_efficacy"):
+        present = [getattr(s, field_name) is not None for s in strains]
+        if any(present) and not all(present):
+            raise ValueError(
+                f"if {field_name} is set within one strain it must be set in all of them."
+            )
+    return strains
+
+
+_INTERACTION = V.union(V.NonNegativeFloat, *ARRAY_LIKE, V.instance_of(Distribution),
+                       V.instance_of(DeterministicParameter))
+
+
+class TransmissionParams(Model):
+    """Strains + cross-immunity matrix + arbitrary model-specific extras.
+
+    ``extra = "allow"`` makes this an open parameter bag: models attach
+    contact matrices, waning periods, seasonality blocks, etc.
+    """
+
+    extra = "allow"
+
+    strain_interactions = Field(V.dict_of(V.str_, V.dict_of(V.str_, _INTERACTION)))
+    strains = Field(V.list_of(V.model(Strain)), after=(_strains_nonempty, _optional_fields_consistent))
+
+    @model_validator
+    def _interactions_cover_all_strains(self):
+        names = [s.strain_name for s in self.strains]
+        if set(names) != set(self.strain_interactions.keys()):
+            raise ValueError(
+                f"first dimension of strain_interactions must contain all strain "
+                f"names as keys. Found {list(self.strain_interactions.keys())}"
+                f"but expected {names}."
+            )
+        for outer, inner in self.strain_interactions.items():
+            if set(names) != set(inner.keys()):
+                raise ValueError(
+                    f"strain_interactions[{outer}] interactions must contain "
+                    f"all strains as keys, including itself, "
+                    f"found {list(inner.keys())}, expected {names}."
+                )
+        return self
+
+
+class Params(Model):
+    """Top-level parameter container: solver + transmission."""
+
+    solver_params = Field(V.model(SolverParams))
+    transmission_params = Field(V.model(TransmissionParams))
+
+
+__all__ = ["SolverParams", "TransmissionParams", "Params"]

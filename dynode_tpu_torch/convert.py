@@ -58,10 +58,11 @@ def seip_params_from_numpy(
     params, *, dtype: torch.dtype = torch.float32, device=None
 ) -> SEIPParams:
     """SEIP parameters from a mapping or an attribute object with the
-    ``SEIPParams`` field names; ``seasonal_vaccination`` stays a bool."""
+    ``SEIPParams`` field names; ``seasonal_vaccination`` stays a bool and
+    the static ``idx`` is not carried over."""
     tensors = {
         f.name: _tensor(_field(params, f.name), dtype, device)
-        for f in dataclasses.fields(SEIPParams) if f.name != "seasonal_vaccination"
+        for f in dataclasses.fields(SEIPParams) if f.name not in ("idx", "seasonal_vaccination")
     }
     return SEIPParams(**tensors, seasonal_vaccination=bool(_field(params, "seasonal_vaccination")))
 

@@ -478,3 +478,47 @@ def test_fit_gradient_matches_finite_differences_on_the_card(cuda):
     fd = ((per[:, 0] - per[:, 1]) / (2 * h)).T
     assert torch.isfinite(s.grad).all()
     assert float((s.grad - fd).abs().max() / fd.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_generator_draws_are_reproducible_and_in_the_support(cuda):
+    """Every family of ``dist`` drawn from a CUDA generator (2**16 draws,
+    float32): on the card, equal bits from equal seeds, in the support,
+    the mean (median for the Cauchy pair) within 5 standard errors
+    (``chip_smoke.check_draws``)."""
+    import chip_smoke
+
+    gen = torch.Generator(device=cuda)
+    for name, d, centre in chip_smoke.dist_families(torch.float32, cuda):
+        gen.manual_seed(11)
+        assert d.sample(gen, (4,)).is_cuda, name
+        chip_smoke.check_draws(name, d, centre, gen, 11, 2**16)
+
+
+@pytest.mark.cuda
+def test_config_built_params_launch_kernels_2_and_4_with_the_default_bits(cuda):
+    """``multistrain_odeparams(multistrain_config())`` and
+    ``seip_odeparams(seip_config(seasonal_vaccination=True))`` (on the card
+    by default) launch kernels #2 and #4 and give the saves of the
+    config-free defaults, bit for bit."""
+    from dynode_tpu_torch.models import seip as seip_model
+
+    cfg = model.multistrain_config()
+    params, y0 = model.multistrain_odeparams(cfg), model.multistrain_initial_state(cfg)
+    assert params.beta.is_cuda and params.idx is cfg.idx
+    defaults, y_def, beta = _inputs(cuda, batch=B - 1)
+    scales = beta / defaults.beta[None, :]
+    ms.launch_multistrain_tsit5.launches = 0
+    got, want = (ms.ensemble_solve_tsit5(y, p.beta[None, :] * scales, p.sigma, p.gamma, p.omega, p.contact_matrix,
+                                         batch=B - 1, duration=DAYS, dt=0.5)
+                 for p, y in ((params, y0), (defaults, y_def)))
+    assert ms.launch_multistrain_tsit5.launches == 2 and torch.equal(got, want)
+    scfg = seip_model.seip_config(seasonal_vaccination=True)
+    seip_scales = torch.as_tensor(np.random.default_rng(8).uniform(0.85, 1.2, B), dtype=torch.float32, device=cuda)
+    tsp.launch_seip_rk4.launches = 0
+    (c_cfg,) = tsp.seip_ensemble_solve(seip_model.seip_initial_state(scfg), seip_model.seip_odeparams(scfg),
+                                       seip_scales, duration=DAYS, dt=0.5, save=(3,))
+    (c_def,) = tsp.seip_ensemble_solve(seip_model.seip_initial_state(True, device=cuda),
+                                       seip_model.seip_default_params(True, device=cuda), seip_scales,
+                                       duration=DAYS, dt=0.5, save=(3,))
+    assert tsp.launch_seip_rk4.launches == 2 and torch.equal(c_cfg, c_def)

@@ -351,7 +351,9 @@ def test_inputs_on_two_devices_raise():
 def test_import_without_jax_pydantic_or_the_jax_package():
     """``import dynode_tpu_torch`` works with ``jax``, ``pydantic``,
     ``annotated_types`` and ``dynode_tpu`` blocked, as on a machine that has
-    none of them, and ``simulate`` runs there."""
+    none of them, and ``simulate``, the config layer (both model configs,
+    their parameters and initial states, a refused value) and ``dist``
+    (a draw, ``biject_to``, a ``log_prob``) run there."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'pydantic', 'annotated_types', 'dynode_tpu'):\n"
@@ -361,6 +363,21 @@ def test_import_without_jax_pydantic_or_the_jax_package():
         "y0 = d.multistrain_initial_state(dtype=torch.float64, device='cpu')\n"
         "sol = d.simulate(d.multistrain_ode, 4, y0, p, d.SolverParams(constant_step_size=0.5))\n"
         "assert int(sol.result) == 0 and sol.ys[4].shape == (5, 2, 3)\n"
+        "cfg = d.multistrain_config(solver_params=d.SolverParams(constant_step_size=0.5))\n"
+        "assert torch.equal(d.multistrain_odeparams(cfg, device='cpu').beta, d.multistrain_default_params(device='cpu').beta)\n"
+        "assert d.multistrain_initial_state(cfg, device='cpu')[2].shape == (2, 3)\n"
+        "s = d.seip_config(seasonal_vaccination=True)\n"
+        "assert d.seip_odeparams(s, device='cpu').seasonal_vaccination and d.seip_initial_state(s, device='cpu')[0].shape == (4, 4, 4, 4)\n"
+        "try:\n"
+        "    d.Strain(strain_name='a', r0=1.0, infectious_period=1.0, exposed_to_infectious=0.0)\n"
+        "    raise SystemExit('a refused value was taken')\n"
+        "except ValueError:\n"
+        "    pass\n"
+        "prior = d.dist.TruncatedNormal(torch.ones(3), 0.3, low=0.5, high=2.0)\n"
+        "x = prior.sample(torch.Generator().manual_seed(0), (4,))\n"
+        "t = d.dist.biject_to(prior.support)\n"
+        "assert torch.allclose(t(t.inv(x)), x) and bool(torch.isfinite(prior.log_prob(x)).all())\n"
+        "assert 'pydantic' not in sys.modules or sys.modules['pydantic'] is None\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

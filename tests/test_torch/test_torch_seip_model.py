@@ -19,7 +19,8 @@ from dynode_tpu_torch import convert
 from dynode_tpu_torch.models import seip as ts
 from dynode_tpu_torch.utils import splines as tspl
 
-TENSOR_FIELDS = [f.name for f in dataclasses.fields(ts.SEIPParams) if f.name != "seasonal_vaccination"]
+TENSOR_FIELDS = [f.name for f in dataclasses.fields(ts.SEIPParams)
+                 if f.name not in ("idx", "seasonal_vaccination")]
 
 
 def _jax_side(seasonal):
