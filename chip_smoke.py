@@ -93,7 +93,28 @@ compile per CUDA source, all started together; Triton's JIT), then:
     ``log_prob`` on CUDA float64 tensors against the CPU (1e-12), and 2**20
     draws of each from a CUDA generator: in the support, equal bits from
     equal seeds, the sample mean (median for the Cauchy pair) within 5
-    standard errors.
+    standard errors;
+15. samples ``bench_nuts.py``'s fit on the card with the port's ``infer``
+    (its own synthetic counts, ``tests/test_torch/golden/bench_nuts_obs.npz``,
+    the model for names, transforms and inits a copy of its
+    ``build_model()``, the potential 13 (c)'s): (a) the potential and
+    gradient at 4,096 chains captured into a CUDA graph equal the eager
+    call bit for bit; eager call and replay times (median of 3) and the
+    replay's device idle share (``torch.profiler``); (b) ``ChEES`` and (c)
+    ``NUTS(dense_mass=True, max_tree_depth=3)`` at 4,096 chains,
+    ``steps_per_call=16``, replaying that graph (``INFER_CHEES``,
+    ``INFER_NUTS`` warmup and draws; (c)'s warmup holds a metric window):
+    finite draws, posterior-mean drift from the true scales below 0.05
+    (``bench_nuts.py``'s ``oneshot_ok`` gate), for (b) no stuck chain after
+    rescue, for (c) the shares of stuck and of diverging chains within 5
+    binomial standard errors of the JAX package's on the same schedule
+    (``NUTS_REFERENCE``); wall, leapfrogs, divergences, split-Rhat, min
+    ESS; (d) a NUTS and a ChEES transition and a 20-step NUTS warmup with
+    its metric window at 4 chains in float64 on the card against CPU
+    tensors, the draws recorded on the CPU and replayed, within 1e-10; (e)
+    9,984 of (b)'s posterior draws through kernel #2 (200 days), 64 members
+    against ``simulate`` within 1e-5. Phase 15 takes ``INFER_BUDGET_S`` or
+    less.
 
 The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -146,6 +167,26 @@ GOLDEN_RTOL, GOLDEN_ATOL = 1e-5, 1e-6  # tests/test_dynamics/test_golden.py, flo
 TOL_FD = 1e-4  # autograd vs central differences, float64: max |d| / max |fd|
 FD_STEP = 1e-6
 FIT_CHECK_CHAINS = 64  # kernel #2's likelihood against the engine's
+INFER_CHEES = (8, 8)  # phase 15 (b): ChEES warmup and draws at FIT_CHAINS
+# phase 15 (c): NUTS warmup and draws at FIT_CHAINS. 24 warmup steps hold a
+# metric window (steps 3-21: Welford, the dense metric at its end, the
+# step-size re-search) and leave 2 steps of dual averaging after it
+# (infer.hmc.build_warmup_schedule), too few to settle the step size: the
+# JAX package itself leaves about a third of the chains stuck there
+# (NUTS_REFERENCE), so (c) holds the port to JAX's shares.
+INFER_NUTS = (24, 8)
+#: the JAX package's NUTS on the CPU with INFER_NUTS, the same data and
+#: FIT_CHAINS chains, float32: shares of stuck chains and of chains with a
+#: divergence (tests/test_torch/golden/nuts_warmup_reference.py)
+NUTS_REFERENCE = {"stuck": 0.36767578125, "diverging": 0.443115234375, "chains": FIT_CHAINS,
+                  "source": "tests/test_torch/golden/nuts_warmup_reference.py"}
+TOL_SHARE_SE = 5.0  # phase 15 (c): those shares on the card within 5 binomial SE of JAX's
+INFER_BUDGET_S = 180.0  # phase 15's time on the card
+TOL_DRIFT = 0.05  # posterior-mean drift from FIT_TRUE_SCALES (bench_nuts.py's oneshot_ok gate)
+CHECK_DAYS = 20  # phase 15 (d): card against CPU transitions, 4 chains
+CHECK_WARMUP = 20  # and a NUTS warmup there: the shortest with a metric window (infer.hmc.build_warmup_schedule)
+CHECK_WARMUP_DAYS = 4  # over this many days: its CPU side, eager, grows with them and holds phase 15's budget
+TOL_CARD_CPU = 1e-10  # that check: max |d| / max |cpu|, float64
 TOL_LIKELIHOOD = 1e-5  # that check: max |d| / max |engine|, float32
 TOL_DIST_LOG_PROB = 1e-12  # log_prob on CUDA vs CPU tensors, float64
 DIST_DRAWS = 2**20  # draws of each family from a CUDA generator
@@ -254,6 +295,20 @@ def scenario_scales(gen, n: int):
     return dist.TruncatedNormal(loc, scale, low=low, high=high).sample(gen, (n,))
 
 
+def bench_nuts_obs():
+    """``bench_nuts.py``'s synthetic counts, (FIT_DAYS, A, K) int64 on the
+    CPU: its ``jax.random.poisson`` draw at ``FIT_TRUE_SCALES``, kept in
+    ``tests/test_torch/golden/bench_nuts_obs.npz`` (written by
+    ``gen_bench_nuts_obs.py`` beside it), since no JAX runs here."""
+    import torch
+
+    golden = np.load(REPO / "tests" / "test_torch" / "golden" / "bench_nuts_obs.npz")
+    check(tuple(golden["true_scales"]) == FIT_TRUE_SCALES, "the golden fit data are for other true scales")
+    obs = torch.as_tensor(golden["obs"])
+    check(tuple(obs.shape) == (FIT_DAYS, 2, 3), f"the golden fit data have shape {tuple(obs.shape)}")
+    return obs
+
+
 def fit_potential(obs, *, days=FIT_DAYS, dtype=None, device=None):
     """``bench_nuts.py``'s ``build_lane_major_potential`` on the port.
 
@@ -306,7 +361,39 @@ def fit_potential(obs, *, days=FIT_DAYS, dtype=None, device=None):
         return -(lp + loglik(sol.ys[4].movedim(-1, 0)))
 
     return types.SimpleNamespace(potential=potential, prior_term=prior_term, loglik=loglik, prior=prior,
-                                 transform=transform, base=base, y0=y0)
+                                 transform=transform, base=base, y0=y0, obs=obs_f)
+
+
+def fit_model(days=FIT_DAYS, dtype=None, device=None):
+    """``bench_nuts.py``'s ``build_model()`` on the port: the model that
+    names the fit's site (``r0_scales``), gives its transform and inits,
+    and observes ``obs`` ((days, A, K) daily incidence) as Poisson counts
+    of the forward's daily incidence."""
+    import torch
+
+    from dynode_tpu_torch import SolverParams, dist, simulate
+    from dynode_tpu_torch.infer import handlers
+    from dynode_tpu_torch.models import multistrain as model
+
+    dtype = dtype or torch.float32
+    cfg = model.multistrain_config(solver_params=SolverParams(constant_step_size=DT))
+    base = model.multistrain_odeparams(cfg, dtype=dtype, device=device)
+    y0 = model.multistrain_initial_state(cfg, dtype=dtype, device=device)
+    sp = cfg.parameters.solver_params
+    loc, scale, low, high = FIT_PRIOR
+    ones = torch.ones(3, dtype=dtype, device=base.beta.device)
+
+    def forward(r0_scales):
+        sol = simulate(model.multistrain_ode, days, y0, base.replace(beta=base.beta * r0_scales), sp)
+        return sol.ys[-1]  # cumulative incidence (T, A, K)
+
+    def fit(obs=None):
+        scales = handlers.sample("r0_scales", dist.TruncatedNormal(loc=loc * ones, scale=scale * ones,
+                                                                   low=low, high=high))
+        incidence = torch.clamp(torch.diff(forward(scales), dim=0), min=1e-6)
+        handlers.sample("obs_incidence", dist.Poisson(incidence), obs=obs)
+
+    return fit
 
 
 def engine_phase(dev, smi: str, gen):
@@ -316,7 +403,7 @@ def engine_phase(dev, smi: str, gen):
     import torch
     import torch.utils._pytree as tree
 
-    from dynode_tpu_torch import SolverParams, dist, simulate, simulate_ensemble
+    from dynode_tpu_torch import SolverParams, simulate, simulate_ensemble
     from dynode_tpu_torch.models import multistrain as model
     from dynode_tpu_torch.ode import RESULT_MAX_STEPS
     from dynode_tpu_torch.ops import multistrain as ms
@@ -388,14 +475,8 @@ def engine_phase(dev, smi: str, gen):
     # (c) bench_nuts.py's lane-major fit potential at its width, built from
     # the port's config and dist
     n_steps = int(round(FIT_DAYS / DT))
-    # bench_nuts.py's synthetic data: Poisson counts of its forward at the true scales, on the CPU
-    cfg = model.multistrain_config(solver_params=sp_c)
-    base_cpu = model.multistrain_odeparams(cfg, device="cpu")
-    c_true = simulate(model.multistrain_ode, FIT_DAYS, model.multistrain_initial_state(cfg, device="cpu"),
-                      base_cpu.replace(beta=base_cpu.beta * torch.tensor(FIT_TRUE_SCALES)), sp_c,
-                      sub_save_indices=(4,)).ys[4]
-    cpu_gen = torch.Generator().manual_seed(SEED)
-    obs = dist.Poisson(torch.clamp(torch.diff(c_true, dim=0), min=1e-6)).sample(cpu_gen)  # (T - 1, A, K)
+    # bench_nuts.py's synthetic data: its own Poisson counts of the forward at the true scales
+    obs = bench_nuts_obs()  # (FIT_DAYS, A, K)
     fit = fit_potential(obs, device=dev)
     # the chains' positions: prior draws on the card, moved to unconstrained space
     fit_z = fit.transform.inv(fit.prior.sample(gen, (FIT_CHAINS,)))
@@ -697,6 +778,291 @@ def config_phase(dev, smi: str, gen, fit, fit_z) -> dict:
           f"support, equal bits from equal seeds, centre within 5 SE: {', '.join(summary)}; "
           f"{time.perf_counter() - t_dist:.1f} s")
     print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+class DrawTape:
+    """The sampler's draw seam (``infer.hmc.Draws``) on a CPU generator in
+    float64, recording every draw; or, given a recording, replaying it on
+    another device in the same order."""
+
+    def __init__(self, generator=None, tape=None, device=None):
+        from dynode_tpu_torch.infer.hmc import Draws
+
+        self.source = Draws(generator) if generator is not None else None
+        self.tape = [] if tape is None else list(tape)
+        self.device = device
+
+    def _next(self, kind, *args):
+        import torch
+
+        if self.source is not None:
+            x = getattr(self.source, kind)(*args)
+            self.tape.append(x)
+            return x
+        x = self.tape.pop(0)
+        return x.to(self.device)
+
+    def normal(self, shape, dtype, device, active=None):
+        import torch
+
+        return self._next("normal", shape, dtype, torch.device("cpu")) if self.source else self._next("normal")
+
+    def uniform(self, shape, dtype, device, active=None):
+        import torch
+
+        return self._next("uniform", shape, dtype, torch.device("cpu")) if self.source else self._next("uniform")
+
+    def bernoulli(self, shape, device, active=None):
+        import torch
+
+        return self._next("bernoulli", shape, torch.device("cpu")) if self.source else self._next("bernoulli")
+
+
+def card_vs_cpu(dev, obs, z4, days=None):
+    """A NUTS and a ChEES transition (each after its step-size search) of
+    the fit at 4 chains in float64, then a NUTS warmup of ``CHECK_WARMUP``
+    steps (``CHECK_WARMUP_DAYS`` days) with its metric window (Welford, the
+    dense metric and its Cholesky factor at the window's end, the step-size
+    re-search under it) and two draws, on the card (potential
+    graph-captured) and on CPU tensors, with the draws recorded on the CPU
+    and replayed on the card.
+    Returns (max relative error of eps, z, accept_prob, the potential and
+    the tuned metric; (NUTS num_steps, ChEES leapfrogs); whether num_steps
+    and diverging are equal)."""
+    import torch
+
+    from dynode_tpu_torch.infer import MCMC, NUTS
+    from dynode_tpu_torch.infer import chees as ch
+    from dynode_tpu_torch.infer import hmc
+    from dynode_tpu_torch.infer.mcmc import batched_pot_and_grad, graphed_potential
+
+    days = days or CHECK_DAYS
+    cpu = torch.device("cpu")
+    z4 = z4.double()
+
+    def potentials(n_days):
+        fits = {where: fit_potential(obs[:n_days].cpu(), days=n_days, dtype=torch.float64, device=where)
+                for where in (cpu, dev)}
+        return {cpu: batched_pot_and_grad(fits[cpu].potential),
+                dev: graphed_potential(fits[dev].potential, z4.shape[0], 3, torch.float64, dev)}
+
+    pag, pag_warm = potentials(days), potentials(CHECK_WARMUP_DAYS)
+    inv = torch.eye(3, dtype=torch.float64) * 0.5 + 0.1
+    out = {}
+    tape = None
+    for where in (cpu, dev):
+        draws = DrawTape(torch.Generator().manual_seed(SEED)) if where == cpu else DrawTape(tape=tape, device=dev)
+        inv_mass = inv.expand(z4.shape[0], 3, 3).to(where)
+        chol = hmc.chol_of_inv(inv_mass, True)
+        state = hmc.init_state(pag[where], z4.to(where))
+        eps = hmc.find_reasonable_step_size(pag[where], inv_mass, chol, state, draws)
+        nuts = hmc.nuts_transition(pag[where], inv_mass, chol, eps, 3, state, draws)
+        bank = ch.init_bank_state(pag[where], z4.to(where))
+        inv_b, chol_b = inv.to(where), hmc.chol_of_inv(inv.to(where), True)
+        eps_b = ch.find_reasonable_step_size_bank(pag[where], inv_b, chol_b, bank, draws)
+        chees, _ = ch.chees_transition(pag[where], inv_b, chol_b, eps_b, 6.0 * eps_b, 64, bank, draws)
+        warm = MCMC(NUTS(None, dense_mass=True, max_tree_depth=3), num_warmup=CHECK_WARMUP, num_samples=2,
+                    num_chains=z4.shape[0])
+        last, tuned, drawn = warm._run_nuts(pag_warm[where], 3, torch.float64, where, z4.to(where), draws,
+                                            rescue=False)
+        out[where.type] = (eps, nuts, eps_b, chees, *tuned, drawn["z"], last)
+        tape = draws.tape if where == cpu else tape
+    worst, equal = 0.0, True
+    for got, want in zip(out[dev.type], out["cpu"]):
+        pairs = [(got, want)] if torch.is_tensor(got) else [
+            (got.z, want.z), (got.accept_prob, want.accept_prob), (got.potential, want.potential)]
+        for a, b in pairs:
+            worst = max(worst, float((a.cpu() - b).abs().max() / b.abs().max()))
+        if not torch.is_tensor(got):
+            equal = equal and torch.equal(got.num_steps.cpu(), want.num_steps) and torch.equal(
+                got.diverging.cpu(), want.diverging)
+    return worst, (out["cpu"][1].num_steps.tolist(), int(out["cpu"][3].num_steps[0])), equal
+
+
+def timed(fn, events):
+    """``fn`` with a pair of CUDA events recorded around each call into
+    ``events`` (read after a synchronize)."""
+    import torch
+
+    def call(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    return call
+
+
+def sampler_report(name, mcmc, wall, replays, replay_s, transitions, smi, reference=None):
+    """Print a fit's statistics (bench_nuts.py's) and gate them; returns
+    the r0_scales draws (chains, draws, 3).
+
+    Gates: finite draws and the drift; with no ``reference``, no stuck
+    chain (every coordinate's spread over the draws below 1e-5); with one
+    (``NUTS_REFERENCE``), the shares of stuck chains and of chains with a
+    divergence each within ``TOL_SHARE_SE`` binomial standard errors of
+    the JAX package's on the same schedule and data."""
+    import torch
+
+    from dynode_tpu_torch.infer.diagnostics import effective_sample_size, split_rhat
+
+    arr = mcmc.get_samples(group_by_chain=True)["r0_scales"].double().cpu().numpy()
+    by_chain = mcmc.get_extra_fields(group_by_chain=True)
+    ef = mcmc.get_extra_fields()
+    div = int(ef["diverging"].sum())
+    leapfrogs = float(ef["num_steps"].double().mean())
+    ess = min(effective_sample_size(arr[:, :, k]) for k in range(3))
+    rhat = max(split_rhat(arr[:, :, k]) for k in range(3))
+    stuck = int((arr.std(axis=1).max(axis=-1) < 1e-5).sum())
+    shares = (stuck / arr.shape[0], float(by_chain["diverging"].any(dim=1).double().mean()))
+    eps_q = np.quantile(ef["step_size"].double().cpu().numpy(), [0.05, 0.5, 0.95])
+    drift = float(np.max(np.abs(arr.reshape(-1, 3).mean(axis=0) - np.asarray(FIT_TRUE_SCALES))))
+    outside_s = wall - replay_s
+    print(f"  {name}: wall {wall:.1f} s, {replays} potential replays ({replays / wall:.2f} leapfrogs/s over the "
+          f"run), {transitions} transitions; the replays' device time {replay_s:.1f} s (CUDA events, "
+          f"{replay_s * 1e3 / max(replays, 1):.1f} ms each), {replay_s / wall:.1%} of the run; "
+          f"outside the replays {outside_s:.1f} s (the trace, inits and the sampler's host work), "
+          f"{outside_s * 1e3 / transitions:.1f} ms a transition; "
+          f"sampling: step size after warmup 5/50/95% {np.round(eps_q, 4).tolist()}, mean leapfrogs per "
+          f"transition {leapfrogs:.2f}, divergences {div}, max split-Rhat "
+          f"{rhat:.4f}, min ESS {ess:.0f} -> {ess / wall:.1f} ESS/s over this short run (not bench_nuts's "
+          f"metric); rescued {mcmc._n_rescued}, stuck chains {stuck} ({shares[0]:.4f}), chains with a "
+          f"divergence {shares[1]:.4f}; posterior means "
+          f"{np.round(arr.reshape(-1, 3).mean(axis=0), 4).tolist()} vs true {list(FIT_TRUE_SCALES)}: drift "
+          f"{drift:.4f} (gate {TOL_DRIFT}) [{smi}]")
+    check(bool(np.isfinite(arr).all()), f"{name}: non-finite draws")
+    check(drift < TOL_DRIFT, f"{name}: posterior-mean drift {drift:.4f}")
+    if reference is None:
+        check(stuck == 0, f"{name}: {stuck} stuck chains after rescue")
+        return arr
+    n_ref, n = reference["chains"], arr.shape[0]
+    for what, got, want in zip(("stuck", "diverging"), shares, (reference["stuck"], reference["diverging"])):
+        pooled = (got * n + want * n_ref) / (n + n_ref)
+        se = math.sqrt(max(pooled * (1.0 - pooled), 1.0 / n) * (1.0 / n + 1.0 / n_ref))
+        z = abs(got - want) / se
+        print(f"      share of {what} chains {got:.4f} vs the JAX package's {want:.4f} on the same schedule "
+              f"({n_ref} chains, {reference['source']}): {z:.2f} SE (gate {TOL_SHARE_SE})")
+        check(z <= TOL_SHARE_SE, f"{name}: share of {what} chains {got:.4f} vs JAX's {want:.4f}: {z:.2f} SE")
+    return arr
+
+
+def infer_phase(dev, smi: str, gen, fit, fit_z) -> dict:
+    """Phase 15: bench_nuts.py's fit sampled on the card with a graph-captured
+    potential, and its posterior predictive through kernel #2 (module
+    docstring). Returns the launches of kernel #2 on this path."""
+    import torch
+
+    from dynode_tpu_torch import SolverParams, simulate
+    from dynode_tpu_torch.infer import MCMC, NUTS, ChEES
+    from dynode_tpu_torch.infer.mcmc import batched_pot_and_grad, graphed_potential
+    from dynode_tpu_torch.models import multistrain as model
+    from dynode_tpu_torch.ops import multistrain as ms
+
+    t_phase = time.perf_counter()
+    print(f"phase 15: bench_nuts.py's fit sampled on the card, graph-captured potential [{smi}]")
+
+    # (a) capture: the graphed potential and gradient against the eager ones
+    eager = batched_pot_and_grad(fit.potential)
+    graph = graphed_potential(fit.potential, FIT_CHAINS, 3, fit_z.dtype, dev)
+    t = time.perf_counter()
+    pe_g, g_g = graph(fit_z)  # captures, then replays
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    eager_walls = []
+    for _ in range(3):  # the first call also serves the bit-for-bit check
+        wall, (pe_e, g_e) = wall_ms(lambda: eager(fit_z))
+        eager_walls.append(wall)
+    eager_ms = statistics.median(eager_walls)
+    same = torch.equal(pe_g, pe_e) and torch.equal(g_g, g_e)
+    replay_ms, _ = median_ms(lambda: graph(fit_z))
+    print(f"  (a) potential and gradient at {FIT_CHAINS} chains, {FIT_DAYS} days: warm-up + capture {capture_s:.1f} "
+          f"s; graph replay equals the eager call bit for bit (value and gradient): {same}; eager {eager_ms:.1f} "
+          f"ms (median of 3), replay {replay_ms:.1f} ms (median of 3 after a warm-up), host clock: "
+          f"{1e3 / eager_ms:.2f} vs "
+          f"{1e3 / replay_ms:.2f} leapfrogs/s [{smi}]")
+    check(same, "the graph replay differs from the eager potential")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph(fit_z)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    if on_card:
+        busy_ms = sum(e.duration_ns() for e in on_card) / 1e6
+        print(f"      one replay traced: {len(on_card)} device operations, busy {busy_ms:.1f} ms of the untraced "
+              f"{replay_ms:.1f} ms: idle share {1.0 - busy_ms / replay_ms:.1%} [{smi}]")
+    else:
+        print("      one replay traced: the profiler saw no device time; the replay's idle share not measured")
+
+    # (b), (c): ChEES and NUTS over the bank, bench_nuts.py's kernels
+    obs = fit.obs
+    fit_fn = fit_model(days=obs.shape[0], device=dev)
+    arrs = {}
+    for name, kernel, (warm, draws), reference in (
+        ("(b) ChEES", ChEES(fit_fn, batched_potential_fn=fit.potential), INFER_CHEES, None),
+        ("(c) NUTS dense, max_tree_depth=3",
+         NUTS(fit_fn, dense_mass=True, max_tree_depth=3, batched_potential_fn=fit.potential), INFER_NUTS,
+         NUTS_REFERENCE),
+    ):
+        mcmc = MCMC(kernel, num_warmup=warm, num_samples=draws, num_chains=FIT_CHAINS, steps_per_call=16)
+        before = graph.replays
+        events = []
+        graph.graph.replay = timed(graph.graph.replay, events)  # this run's replays, by CUDA events
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mcmc.run(gen, obs=obs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        del graph.graph.replay
+        replay_s = sum(start.elapsed_time(end) for start, end in events) / 1e3
+        check(mcmc.graph is graph, f"{name}: the run did not replay the cached graph")
+        check(mcmc.get_samples()["r0_scales"].device.type == "cuda", f"{name}: the draws left the card")
+        arrs[name] = sampler_report(f"{name} at {FIT_CHAINS} chains, {warm} warmup + {draws} draws",
+                                    mcmc, wall, graph.replays - before, replay_s, warm + draws, smi, reference)
+
+    # (d) the card against the CPU: transitions at 4 chains in float64, the
+    # draws recorded on the CPU and replayed on the card
+    t = time.perf_counter()
+    worst, steps, equal = card_vs_cpu(dev, obs, fit_z[:4])
+    check_s = time.perf_counter() - t
+    print(f"  (d) card vs CPU, 4 chains, {CHECK_DAYS} days, float64, draws recorded on the CPU and replayed: "
+          f"step-size search, a NUTS transition (num_steps {steps[0]}), the bank search and a ChEES transition "
+          f"({steps[1]} leapfrogs), a NUTS warmup of {CHECK_WARMUP} steps ({CHECK_WARMUP_DAYS} days) with its metric "
+          f"window and 2 draws, the "
+          f"card's potential graph-captured: max rel err of eps, z, accept_prob, potential and the tuned metric "
+          f"{worst:.3e} (tol {TOL_CARD_CPU:.0e}); num_steps and diverging equal: {equal}; {check_s:.1f} s")
+    check(equal, "card and CPU transitions took other steps or divergences")
+    check(worst <= TOL_CARD_CPU, f"card vs CPU transitions: rel err {worst:.3e}")
+
+    # (e) posterior predictive through kernel #2: 9,984 of (b)'s draws, 200 days
+    post = torch.as_tensor(arrs["(b) ChEES"].reshape(-1, 3)[:ENSEMBLE], dtype=torch.float32, device=dev)
+    base, y0 = fit.base, fit.y0
+    torch.cuda.synchronize()
+    ms.launch_multistrain_tsit5.launches = 0
+    saves = ms.unpack_saves(ms.ensemble_solve_tsit5(
+        y0, base.beta[None, :] * post, base.sigma, base.gamma, base.omega, base.contact_matrix,
+        batch=ENSEMBLE, duration=DAYS, dt=DT))
+    torch.cuda.synchronize()
+    launches = {"multistrain_tsit5": ms.launch_multistrain_tsit5.launches}
+    n = FIT_CHECK_CHAINS
+    sim = simulate(model.multistrain_ode_ensemble, int(DAYS), model.multistrain_ensemble_state(y0, n),
+                   base.replace(beta=base.beta[:, None] * post[:n].T), SolverParams(constant_step_size=DT))
+    rel = max(rel_err(g.movedim(-1, 1), w[:, :n])[1] for g, w in zip(sim.ys, saves))
+    c_end = saves[4][-1].sum(dim=(1, 2))
+    print(f"  (e) posterior predictive: {ENSEMBLE} of (b)'s draws through kernel #2 (multistrain_tsit5), "
+          f"{DAYS:.0f} days, dt={DT}: launches {launches['multistrain_tsit5']}; cumulative incidence at day "
+          f"{DAYS:.0f}: median {float(c_end.median()):.5f}, 5-95% {float(c_end.quantile(0.05)):.5f} - "
+          f"{float(c_end.quantile(0.95)):.5f}; {n} members vs simulate: max rel err {rel:.3e} (tol {TOL_ENGINE:.0e})")
+    check(launches["multistrain_tsit5"] > 0, "kernel #2 did not launch on the posterior predictive")
+    check(all(bool(torch.isfinite(x).all()) for x in saves), "non-finite posterior-predictive saves")
+    check(rel <= TOL_ENGINE, f"posterior predictive vs simulate: rel err {rel:.3e}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  phase 15: {phase_s:.1f} s (gate {INFER_BUDGET_S:.0f} s)")
+    check(phase_s <= INFER_BUDGET_S, f"phase 15 took {phase_s:.1f} s, over its {INFER_BUDGET_S:.0f} s")
     return launches
 
 
@@ -1505,6 +1871,9 @@ def main() -> int:
     # ---- 14. config to kernels, and dist on the card -----------------------------
     config_launches = config_phase(dev, smi, cuda_gen, fit, fit_z)
 
+    # ---- 15. bench_nuts.py's fit sampled on the card, and its posterior predictive
+    infer_launches = infer_phase(dev, smi, cuda_gen, fit, fit_z)
+
     # ---- the kernels' line: counts of this run's work and the card's bound ---
     obs_attempts = int((obs_stats["n_accepted"] + obs_stats["n_rejected"]).sum())
     obs_bytes = 8 * 2  # a member's save slot: 6 c rows + 2 zero rows, bf16
@@ -1556,6 +1925,8 @@ def main() -> int:
         })
     for name, n in config_launches.items():  # phase 14's path from the configs
         kernels[list(meta).index(name)]["config_path_launches"] = n
+    for name, n in infer_launches.items():  # phase 15's posterior predictive
+        kernels[list(meta).index(name)]["infer_path_launches"] = n
     kernels[list(meta).index("rk_solve_adaptive")].update(adaptive_facts)
     kernels[list(meta).index("multistrain_tsit5")].update(row_facts)
     kernels[list(meta).index("multistrain_tsit5_2d")].update(facts_2d)

@@ -7,13 +7,14 @@ the ODE engine (:mod:`.ode`: the RK solvers, controllers and
 :func:`diffeqsolve`), :func:`simulate` and :func:`simulate_ensemble`
 (:mod:`.simulation`), the multi-strain SEIRS and SEIP models with their
 config-based constructors (:mod:`.models`), the carry-over of JAX values
-(:mod:`.convert`) and the six ensemble kernels with their plain versions
-(:mod:`.ops`). Constructors put their tensors on the card unless given
-``device="cpu"``. The package imports ``torch`` and never ``jax`` or
+(:mod:`.convert`), the six ensemble kernels with their plain versions
+(:mod:`.ops`) and Bayesian inference (:mod:`.infer`: handlers, NUTS and
+ChEES over a bank of chains, ``MCMC``, diagnostics). Constructors put
+their tensors on the card unless given ``device="cpu"``. The package imports ``torch`` and never ``jax`` or
 ``pydantic``.
 """
 
-from . import config, convert, dist, models, ode, ops, simulation, struct, utils
+from . import config, convert, dist, infer, models, ode, ops, simulation, struct, utils
 from .config import (
     AgeBin,
     Bin,
@@ -93,6 +94,7 @@ __all__ = [
     "config",
     "convert",
     "dist",
+    "infer",
     "models",
     "ode",
     "ops",

@@ -11,6 +11,8 @@ asked for with ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 #: the only compute capability the kernels are built for (``sm_90a``)
@@ -73,3 +75,56 @@ def uses_kernel(device: torch.device) -> bool:
         return False
     require_hopper(device)
     return True
+
+
+def scalar(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """``x`` as a 0-d tensor of ``dtype`` on ``device``.
+
+    A Python number is written there by a fill kernel and never copied from
+    the host, so a call that builds its constants this way can be captured
+    in a CUDA graph (a host-to-device copy from pageable memory
+    synchronises, which capture forbids). The value is the one
+    ``torch.as_tensor(x, dtype=dtype)`` holds.
+    """
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=dtype, device=device)
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+#: the stores :func:`constant` fills, innermost last (:func:`keep_constants`)
+_STORES: list = []
+
+
+@contextlib.contextmanager
+def keep_constants(store: dict):
+    """Within the block, :func:`constant` copies each content to the device
+    once and keeps it in ``store``.
+
+    A CUDA graph captured after a first (warm-up) call inside the block
+    holds no host-to-device copy, and reads the kept tensors at every
+    replay: the owner of the graph keeps ``store`` as long as the graph.
+    """
+    _STORES.append(store)
+    try:
+        yield store
+    finally:
+        _STORES.pop()
+
+
+def constant(host: torch.Tensor, device) -> torch.Tensor:
+    """The CPU tensor ``host`` on ``device``.
+
+    On the CPU ``host`` itself; inside :func:`keep_constants`, the tensor
+    its store holds for equal contents (copied on the first call);
+    otherwise a fresh copy.
+    """
+    device = torch.device(device)
+    if device.type == "cpu":
+        return host
+    if not _STORES:
+        return host.to(device)
+    store = _STORES[-1]
+    key = (host.numpy().tobytes(), host.dtype, tuple(host.shape), str(device))
+    if key not in store:
+        store[key] = host.to(device)
+    return store[key]

@@ -1,12 +1,13 @@
 """Carry the JAX package's parameters and state into the port.
 
-Both take numpy arrays (``np.asarray`` of the JAX values) and never import
+They take numpy arrays (``np.asarray`` of the JAX values) and never import
 JAX: a mapping or any object with ``beta/sigma/gamma/omega/contact_matrix``
 becomes :class:`~dynode_tpu_torch.models.multistrain.MultiStrainParams`, and
 the ``(s, e, i, r, c)`` tuple becomes a tuple of tensors; for the SEIP model
 a mapping or object with the ``SEIPParams`` field names becomes
 :class:`~dynode_tpu_torch.models.seip.SEIPParams`, and ``(S, E, I, C)`` a
-tuple of tensors. With no
+tuple of tensors; a JAX ``MCMC.warm_start_state()`` becomes the port's
+warm start (:func:`warm_start_from_numpy`). With no
 ``device`` the tensors go to the card (raises where there is none); pass
 ``device="cpu"`` for the CPU.
 """
@@ -76,4 +77,45 @@ def seip_state_from_numpy(
     return tuple(_tensor(x, dtype, device) for x in state)
 
 
-__all__ = ["params_from_numpy", "seip_params_from_numpy", "seip_state_from_numpy", "state_from_numpy"]
+def warm_start_from_numpy(saved, *, dtype: torch.dtype = None, device=None):
+    """The port's ``MCMC.run(warm_start=...)`` value from the JAX
+    ``MCMC.warm_start_state()``, with every array as numpy (``np.asarray``).
+
+    ``saved`` is ``(state, tuned)``. A NUTS state (fields ``z, potential,
+    grad, energy, accept_prob, num_steps, diverging``, chains leading) and
+    ``(inv_mass, chol, step_size)`` become an ``infer.hmc.HMCState`` and a
+    tuple of tensors; a ChEES state (its fields plus ``iter_idx``) and
+    ``(inv_mass, chol, step_size, trajectory)`` an
+    ``infer.chees.ChEESBankState`` and a tuple. The per-chain keys have no
+    counterpart and are dropped. Floating arrays take ``dtype`` (default:
+    their own), on ``device`` (default: the card).
+    """
+    from .infer.chees import ChEESBankState
+    from .infer.hmc import HMCState
+
+    state, tuned = saved
+    dev = _device.resolve(device)
+
+    def tensor(x):
+        t = torch.as_tensor(np.array(x), device=dev)  # a copy: JAX's arrays are read-only
+        return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+    fields = {f: tensor(_field(state, f)) for f in HMCState._fields}
+    fields["num_steps"] = fields["num_steps"].to(torch.int32)
+    fields["diverging"] = fields["diverging"].to(torch.bool)
+    if len(tuned) == 4:
+        new_state = ChEESBankState(**fields, iter_idx=int(np.asarray(_field(state, "iter_idx"))))
+    elif len(tuned) == 3:
+        new_state = HMCState(**fields)
+    else:
+        raise ValueError(f"expected 3 (NUTS) or 4 (ChEES) tuned parameters, got {len(tuned)}")
+    return new_state, tuple(tensor(x) for x in tuned)
+
+
+__all__ = [
+    "params_from_numpy",
+    "seip_params_from_numpy",
+    "seip_state_from_numpy",
+    "state_from_numpy",
+    "warm_start_from_numpy",
+]

@@ -13,6 +13,7 @@ import math
 import numpy as np
 import torch
 
+from .. import _device
 from . import constraints as C
 from .distribution import Distribution, as_float
 
@@ -405,8 +406,7 @@ class TruncatedNormal(Distribution):
     def _std_bounds(self, loc, scale):
         a = -math.inf if self.low is None else (as_float(self.low, loc)[0] - loc) / scale
         b = math.inf if self.high is None else (as_float(self.high, loc)[0] - loc) / scale
-        return torch.as_tensor(a, dtype=loc.dtype, device=loc.device), torch.as_tensor(
-            b, dtype=loc.dtype, device=loc.device)
+        return _device.scalar(a, loc.dtype, loc.device), _device.scalar(b, loc.dtype, loc.device)
 
     def sample(self, generator, sample_shape=()):
         """Draw samples from ``generator``; shape ``sample_shape + shape()``."""

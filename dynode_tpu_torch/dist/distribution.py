@@ -23,6 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import _device
 from . import constraints as C
 from .transforms import Transform
 
@@ -79,11 +80,17 @@ def common_device(*xs, device=None):
 
 def as_float(*xs, device=None) -> Tuple[torch.Tensor, ...]:
     """Every ``x`` as a tensor of the common floating dtype and device
-    (:func:`float_dtype`, :func:`common_device`); tensors keep their graph."""
+    (:func:`float_dtype`, :func:`common_device`); tensors keep their graph.
+    Python numbers are filled in on the device, not copied from the host
+    (``_device.scalar``), so a CUDA graph can capture the call."""
     xs = tuple(_strong(x) for x in xs)
     dtype = float_dtype(*xs)
     dev = common_device(*xs, device=device)
-    return tuple(torch.as_tensor(x, dtype=dtype, device=dev) for x in xs)
+    return tuple(
+        _device.scalar(x, dtype, dev) if isinstance(x, (bool, int, float))
+        else torch.as_tensor(x, dtype=dtype, device=dev)
+        for x in xs
+    )
 
 
 class Distribution:

@@ -12,6 +12,7 @@ import math
 import numpy as np
 import torch
 
+from .. import _device
 from . import constraints as C
 
 
@@ -103,7 +104,7 @@ class AffineTransform(Transform):
         """``log|det J|`` of the forward map at ``(x, y)``."""
         x = _tensor(x)
         dtype = x.dtype if x.is_floating_point() else torch.float32
-        scale = torch.as_tensor(_on(self.scale, x), dtype=dtype, device=x.device)
+        scale = _device.scalar(_on(self.scale, x), dtype, x.device)
         return torch.log(torch.abs(scale)).expand(x.shape)
 
 

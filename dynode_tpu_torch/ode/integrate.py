@@ -84,10 +84,16 @@ def _advance(carry, done, step, host_skips: bool):
     return _select(done, carry, step(carry))
 
 
+def _under_functorch() -> bool:
+    """Whether a ``torch.func`` transform (``vmap``, ``grad``) is active."""
+    return torch._C._functorch.peek_interpreter_stack() is not None
+
+
 def _host_skips(device: torch.device) -> bool:
     """Whether the host reads the done mask after every step: on CPU tensors
-    only, which keep no device busy."""
-    return device.type == "cpu"
+    only, which keep no device busy, and never under ``torch.func`` (whose
+    batched tensors the host cannot read)."""
+    return device.type == "cpu" and not _under_functorch()
 
 
 def _kahan_update(y, comp, inc):
@@ -163,10 +169,16 @@ def _member_map(fn, args):
 
 
 def _checkpointed(fn, enabled: bool):
-    """``fn`` under ``torch.utils.checkpoint`` when ``enabled``."""
-    if not enabled:
+    """``fn`` under ``torch.utils.checkpoint`` when ``enabled``.
+
+    The engine draws no random numbers, so the checkpoint keeps no RNG
+    state: reading a CUDA generator's state is a host call that CUDA-graph
+    capture forbids. ``torch.func`` transforms do not support the saved
+    tensor hooks of a checkpoint; under them the solve keeps every state.
+    """
+    if not enabled or _under_functorch():
         return fn
-    return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
 
 
 def _jump_grid(controller, like: torch.Tensor):
@@ -311,7 +323,7 @@ def _solve(
         y_ends.append(ye_c)
         # once per chunk: every later step of a finished solve emits (t, t, y)
         left = (n_chunks - c - 1) * chunk
-        if left and bool((carry[0] >= t_done).all()):
+        if left and not _under_functorch() and bool((carry[0] >= t_done).all()):
             t = carry[0]
             starts.append(t.expand((left,) + t.shape))
             ends.append(t.expand((left,) + t.shape))
@@ -547,12 +559,19 @@ def _solve_constant_direct(
     )
 
 
-def _save_grid(ts, fdtype) -> torch.Tensor:
+def _save_grid(ts, fdtype):
     """A save grid as given (sequence, numpy array, tensor), read in
-    float64 on the host and cast to the state's dtype there."""
+    float64 on the host and cast to the state's dtype there: the CPU
+    tensor and its values as a float64 numpy array.
+
+    Both are host constants, built outside any ``torch.func`` transform:
+    inside one, a new tensor is wrapped as a batched or gradient-tracking
+    tensor without storage, which ``.numpy()`` refuses."""
     if torch.is_tensor(ts):
         ts = ts.detach().cpu()
-    return torch.as_tensor(np.asarray(ts, dtype=np.float64)).to(fdtype)
+    with torch._C._DisableFuncTorch():
+        grid = torch.as_tensor(np.asarray(ts, dtype=np.float64)).to(fdtype)
+        return grid, grid.double().numpy()
 
 
 def diffeqsolve(
@@ -609,19 +628,20 @@ def diffeqsolve(
     bshape = tuple(y0[0].shape[:1]) if batched else ()
     grad = torch.is_grad_enabled() and any(x.requires_grad for x in (*y0, *arg_tensors))
 
-    t0_arr = torch.as_tensor(t0, dtype=fdtype, device=device)
-    t1_arr = torch.as_tensor(t1, dtype=fdtype, device=device)
+    t0_arr = _device.scalar(t0, fdtype, device)
+    t1_arr = _device.scalar(t1, fdtype, device)
 
     # ---- save grid ---------------------------------------------------------
     subs_fn = None
+    save_np = None  # the grid's host values; [t0, t1] needs none (one interval)
     if saveat is None:
         save_host = torch.stack([t0_arr, t1_arr]).cpu()
     elif saveat.subs is not None:
-        save_host = _save_grid(saveat.subs.ts, fdtype)
+        save_host, save_np = _save_grid(saveat.subs.ts, fdtype)
         subs_fn = saveat.subs.fn
     else:
-        save_host = _save_grid(saveat.ts, fdtype)
-    save_ts = save_host.to(device)
+        save_host, save_np = _save_grid(saveat.ts, fdtype)
+    save_ts = _device.constant(save_host, device)
 
     if batched:
         term = ODETerm(_member_map(term.vf, args))
@@ -645,7 +665,7 @@ def diffeqsolve(
                 ):
                     return _solve_constant_direct(
                         term, solver, subs_fn, stride, n_pts, bool(compensated_summation),
-                        t0_arr, torch.as_tensor(sdt, dtype=fdtype, device=device),
+                        t0_arr, _device.scalar(sdt, fdtype, device),
                         y0, args, save_ts, bshape, grad,
                     )
         else:
@@ -656,7 +676,7 @@ def diffeqsolve(
         # interval's dt ramp; a smaller budget goes to the buffered engine.
         # So does a batch-leading solve: JAX's jitted vmap traces the save
         # grid, and a traced grid takes the buffered engine there.
-        grid = None if batched else _uniform_grid_info(save_host.numpy(), t0, t1)
+        grid = None if batched or save_np is None else _uniform_grid_info(save_np, t0, t1)
         if grid is not None and grid >= 3 and budget >= grid + 17:
             if steps_per_save is not None:
                 k = max(int(steps_per_save), 2)
@@ -667,7 +687,7 @@ def diffeqsolve(
             return _solve_adaptive_grid(
                 term, solver, stepsize_controller, subs_fn, k, grid + 1, budget,
                 bool(compensated_summation), t0_arr,
-                None if dt0 is None else torch.as_tensor(dt0, dtype=fdtype, device=device),
+                None if dt0 is None else _device.scalar(dt0, fdtype, device),
                 y0, args, save_ts, bshape, grad,
             )
 
@@ -681,7 +701,7 @@ def diffeqsolve(
         chunk = min(checkpoint_every, budget)
     budget = -(-budget // chunk) * chunk
 
-    dt0_arr = None if dt0 is None else torch.as_tensor(dt0, dtype=fdtype, device=device)
+    dt0_arr = None if dt0 is None else _device.scalar(dt0, fdtype, device)
     return _solve(
         term, solver, stepsize_controller, subs_fn, budget, chunk, bool(compensated_summation),
         t0_arr, t1_arr, dt0_arr, y0, args, save_ts, bshape, grad,

@@ -522,3 +522,63 @@ def test_config_built_params_launch_kernels_2_and_4_with_the_default_bits(cuda):
                                        seip_model.seip_default_params(True, device=cuda), seip_scales,
                                        duration=DAYS, dt=0.5, save=(3,))
     assert tsp.launch_seip_rk4.launches == 2 and torch.equal(c_cfg, c_def)
+
+
+@pytest.mark.cuda
+def test_graphed_potential_equals_the_eager_one_bit_for_bit(cuda):
+    """``bench_nuts.py``'s fit potential and gradient (its own data, 20
+    days, 512 chains) replayed from a CUDA graph equal the eager call bit
+    for bit, at the first replay and after the input buffer is refilled;
+    a second lookup with the same key returns the same graph."""
+    import chip_smoke
+    from dynode_tpu_torch.infer.mcmc import batched_pot_and_grad, graphed_potential
+
+    fit = chip_smoke.fit_potential(chip_smoke.bench_nuts_obs()[:20], days=20, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    eager = batched_pot_and_grad(fit.potential)
+    graph = graphed_potential(fit.potential, 512, 3, torch.float32, cuda)
+    assert graphed_potential(fit.potential, 512, 3, torch.float32, cuda) is graph
+    for _ in range(2):
+        z = fit.transform.inv(fit.prior.sample(gen, (512,)))
+        (pe_g, g_g), (pe_e, g_e) = graph(z), eager(z)
+        assert torch.equal(pe_g, pe_e) and torch.equal(g_g, g_e)
+    assert graph.replays == 2
+
+
+@pytest.mark.cuda
+def test_replayed_transitions_on_the_card_equal_the_cpu(cuda):
+    """A NUTS and a ChEES transition of the fit (4 chains, 10 days,
+    float64, the card's potential graph-captured) with the draws recorded
+    on the CPU and replayed on the card equal the CPU's within 1e-10;
+    ``num_steps`` and ``diverging`` equal (``chip_smoke.card_vs_cpu``)."""
+    import chip_smoke
+
+    obs = chip_smoke.bench_nuts_obs()
+    z4 = torch.as_tensor(np.random.default_rng(9).normal(0.0, 0.4, (4, 3)), device=cuda)
+    worst, _, equal = chip_smoke.card_vs_cpu(cuda, obs, z4, days=10)
+    assert equal and worst <= 1e-10
+
+
+@pytest.mark.cuda
+def test_capture_that_meets_a_host_sync_raises_and_never_runs_eagerly(cuda):
+    """A potential that reads a device value on the host cannot be captured:
+    the capture raises ``GraphCaptureError`` naming the line and the sync,
+    no result comes back, and a second call raises again. So does a
+    potential that copies a host tensor to the card."""
+    from dynode_tpu_torch.infer.mcmc import GraphCaptureError, GraphedPotential, batched_pot_and_grad
+
+    def reads_the_host(zb):
+        scale = 2.0 if float(zb.detach().abs().max()) > 1e30 else 1.0
+        return scale * (zb * zb).sum(-1)
+
+    def copies_from_the_host(zb):
+        return (zb * torch.tensor([1.0, 2.0, 3.0], device=zb.device)).sum(-1)
+
+    z = torch.ones((8, 3), device=cuda)
+    graph = GraphedPotential(batched_pot_and_grad(reads_the_host))
+    for _ in range(2):
+        with pytest.raises(GraphCaptureError, match=r"test_torch_cuda\.py:\d+ \(scale = 2\.0 if float\(zb.*synchroniz"):
+            graph(z)
+        assert graph.graph is None and graph.replays == 0
+    with pytest.raises(GraphCaptureError, match=r"test_torch_cuda\.py"):
+        GraphedPotential(batched_pot_and_grad(copies_from_the_host))(z)

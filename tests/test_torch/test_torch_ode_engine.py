@@ -352,8 +352,9 @@ def test_import_without_jax_pydantic_or_the_jax_package():
     """``import dynode_tpu_torch`` works with ``jax``, ``pydantic``,
     ``annotated_types`` and ``dynode_tpu`` blocked, as on a machine that has
     none of them, and ``simulate``, the config layer (both model configs,
-    their parameters and initial states, a refused value) and ``dist``
-    (a draw, ``biject_to``, a ``log_prob``) run there."""
+    their parameters and initial states, a refused value), ``dist``
+    (a draw, ``biject_to``, a ``log_prob``) and a tiny ``infer.MCMC``
+    (NUTS, 2 chains) run there."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'pydantic', 'annotated_types', 'dynode_tpu'):\n"
@@ -377,6 +378,12 @@ def test_import_without_jax_pydantic_or_the_jax_package():
         "x = prior.sample(torch.Generator().manual_seed(0), (4,))\n"
         "t = d.dist.biject_to(prior.support)\n"
         "assert torch.allclose(t(t.inv(x)), x) and bool(torch.isfinite(prior.log_prob(x)).all())\n"
+        "from dynode_tpu_torch.infer import MCMC, NUTS, handlers\n"
+        "def m():\n"
+        "    handlers.sample('x', d.dist.Normal(torch.zeros(2, dtype=torch.float64), 1.0))\n"
+        "mc = MCMC(NUTS(m, max_tree_depth=2), num_warmup=3, num_samples=3, num_chains=2)\n"
+        "mc.run(torch.Generator().manual_seed(0))\n"
+        "assert mc.get_samples()['x'].shape == (6, 2) and bool(torch.isfinite(mc.get_samples()['x']).all())\n"
         "assert 'pydantic' not in sys.modules or sys.modules['pydantic'] is None\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
