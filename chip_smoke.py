@@ -114,7 +114,30 @@ compile per CUDA source, all started together; Triton's JIT), then:
     tensors, the draws recorded on the CPU and replayed, within 1e-10; (e)
     9,984 of (b)'s posterior draws through kernel #2 (200 days), 64 members
     against ``simulate`` within 1e-5. Phase 15 takes ``INFER_BUDGET_S`` or
-    less.
+    less;
+16. runs the rest of inference on the card, on the same counts: (a)
+    ``bench_nuts.py``'s ``run_oneshot`` row through ``MCMCProcess``
+    (ChEES, 1,024 chains, 8 warmup + 8 draws, ``nuts_kwargs`` handing the
+    kernel the batched potential, whose graph at this width is captured
+    first and timed), ``get_samples``, ``to_arviz`` (posterior, sample
+    stats, prior and posterior predictive through ``Predictive``, the
+    pointwise log-likelihood), ``loo`` and ``waic`` with the Pareto-k
+    shares, ``save_mcmc`` to a temporary directory, ``load_mcmc_warm_start``
+    and a second ``infer(warm_start=...)`` of 8 draws: every draw finite,
+    drift below 0.05 after each segment, the second segment's draws not
+    the first's, finite estimates; (b) the forecast row: (a)'s draws
+    resampled (``resample_draws``) to 9,984 members, kernel #2 over 200
+    days, the daily incidence through ``member_quantiles`` at (0.05, 0.25,
+    0.5, 0.75, 0.95): the bands within 1e-6 of ``numpy.quantile`` of the
+    same saves on the host, ordered, kernel #2's launches counted on this
+    path; (c) ``bench_nuts.py``'s ``bench_svi`` row: ``SVI(...,
+    AutoMultivariateNormal, Adam(0.1), Trace_ELBO()).run_multistart`` at
+    1,024 starts, ``SVI_STEPS`` eager steps of its 300, then
+    ``Predictive(guide, params, num_samples=2000)``: final ELBOs finite on
+    99% of the starts, start 0's loss falls, ELBO-steps per second and the
+    row's extrapolated time; on 4 starts, 3 steps and 4 days in float64
+    the card's parameters equal the CPU's within 1e-10 given the same
+    draws. Phase 16 takes ``SLICE_BUDGET_S`` or less.
 
 The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -191,6 +214,16 @@ TOL_LIKELIHOOD = 1e-5  # that check: max |d| / max |engine|, float32
 TOL_DIST_LOG_PROB = 1e-12  # log_prob on CUDA vs CPU tensors, float64
 DIST_DRAWS = 2**20  # draws of each family from a CUDA generator
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 without tensor cores
+SLICE_CHAINS = 1024  # phase 16 (a): bench_nuts.py's run_oneshot width
+SLICE_CHEES = (8, 8)  # and its ChEES warmup and draws (bench: 200 + 400), then 8 more from a saved warm start
+FORECAST_QS = (0.05, 0.25, 0.5, 0.75, 0.95)
+TOL_BANDS = 1e-6  # member_quantiles on the card vs numpy.quantile on the host: max |d| / max |ref|
+SVI_STARTS = 1024  # phase 16 (c): bench_nuts.py's bench_svi width
+SVI_STEPS = 12  # of its 300, eager (the generic model's potential is not graph-captured): (c) well inside 90 s
+SVI_SAMPLES = 2000  # Predictive(guide, params, num_samples=...), as bench_svi
+SVI_CHECK = (4, 3, 4)  # starts, steps, days: the card against the CPU in float64
+MIN_FINITE_ELBO = 0.99  # share of starts whose final ELBO is finite
+SLICE_BUDGET_S = 200.0  # phase 16's time on the card
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
@@ -791,7 +824,7 @@ class DrawTape:
 
         self.source = Draws(generator) if generator is not None else None
         self.tape = [] if tape is None else list(tape)
-        self.device = device
+        self.device = device if device is not None else generator.device
 
     def _next(self, kind, *args):
         import torch
@@ -1064,6 +1097,178 @@ def infer_phase(dev, smi: str, gen, fit, fit_z) -> dict:
     print(f"  phase 15: {phase_s:.1f} s (gate {INFER_BUDGET_S:.0f} s)")
     check(phase_s <= INFER_BUDGET_S, f"phase 15 took {phase_s:.1f} s, over its {INFER_BUDGET_S:.0f} s")
     return launches
+
+
+def slice_phase(dev, smi: str, fit) -> dict:
+    """Phase 16: the rest of inference on the card (module docstring).
+    Returns the launches of kernel #2 on the forecast path."""
+    import tempfile
+
+    import torch
+
+    from dynode_tpu_torch.infer import (
+        SVI,
+        Adam,
+        AutoMultivariateNormal,
+        MCMCProcess,
+        Predictive,
+        Trace_ELBO,
+        load_mcmc_warm_start,
+        loo,
+        member_quantiles,
+        resample_draws,
+        save_mcmc,
+        waic,
+    )
+    from dynode_tpu_torch.infer.mcmc import graphed_potential
+    from dynode_tpu_torch.ops import multistrain as ms
+
+    t_phase = time.perf_counter()
+    print(f"phase 16: processes, SVI and forecast bands on the card [{smi}]")
+    obs = fit.obs
+    fit_fn = fit_model(days=obs.shape[0], device=dev)
+
+    # (a) bench_nuts.py's run_oneshot row through MCMCProcess (ChEES)
+    warm, draws = SLICE_CHEES
+    graph = graphed_potential(fit.potential, SLICE_CHAINS, 3, torch.float32, dev)
+    z0 = fit.transform.inv(fit.prior.sample(torch.Generator(device=dev).manual_seed(SEED), (SLICE_CHAINS,)))
+    t = time.perf_counter()
+    graph(z0)  # warm-up and capture at this width; the process's run replays the cached graph
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    proc = MCMCProcess(numpyro_model=fit_fn, num_samples=draws, num_warmup=warm, num_chains=SLICE_CHAINS,
+                       nuts_max_tree_depth=3, sampler="chees", progress_bar=False, inference_prngkey=SEED,
+                       nuts_kwargs={"batched_potential_fn": fit.potential})
+    segments, mcmc = [], None
+    for segment in ("first", "second"):
+        warm_start = None
+        if segment == "second":
+            with tempfile.TemporaryDirectory() as tmp:
+                path = f"{tmp}/oneshot.npz"
+                save_mcmc(path, mcmc)
+                warm_start = load_mcmc_warm_start(path, device=dev)
+            check(torch.equal(warm_start[0].z, proc.warm_start_state()[0].z), "the saved warm start differs")
+        before = graph.replays
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mcmc = proc.infer(warm_start=warm_start, obs=obs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check(mcmc.graph is graph, f"(a) {segment} segment: the run did not replay the cached graph")
+        r0 = proc.get_samples()["r0_scales"]
+        drift = float((r0.double().mean(dim=0).cpu() - torch.tensor(FIT_TRUE_SCALES, dtype=torch.float64)).abs().max())
+        segments.append(r0)
+        print(f"  (a) MCMCProcess ChEES, {SLICE_CHAINS} chains, {'0 (warm start from the saved file)' if warm_start else warm} "
+              f"warmup + {draws} draws: wall {wall:.1f} s, {graph.replays - before} potential replays; drift "
+              f"{drift:.4f} (gate {TOL_DRIFT}) [{smi}]")
+        check(bool(torch.isfinite(r0).all()), f"(a) {segment} segment: non-finite draws")
+        check(drift < TOL_DRIFT, f"(a) {segment} segment: posterior-mean drift {drift:.4f}")
+        if segment == "first":
+            t = time.perf_counter()
+            idata = proc.to_arviz()
+            arviz_s = time.perf_counter() - t
+            ll = idata.log_likelihood["obs_incidence"]
+            t = time.perf_counter()
+            scores = {"loo": loo(idata), "waic": waic(idata)}
+            score_s = time.perf_counter() - t
+            k = scores["loo"].pareto_k
+            shares = [float(np.mean(k <= 0.5)), float(np.mean((k > 0.5) & (k <= 0.7))), float(np.mean(k > 0.7))]
+            print(f"      to_arviz {arviz_s:.1f} s: groups {idata.groups()}, log-likelihood {ll.shape}; loo and waic "
+                  f"{score_s:.1f} s: elpd_loo {scores['loo'].elpd:.2f} (se {scores['loo'].se:.2f}), elpd_waic "
+                  f"{scores['waic'].elpd:.2f}; Pareto k <= 0.5 / 0.5-0.7 / > 0.7: "
+                  f"{shares[0]:.4f} / {shares[1]:.4f} / {shares[2]:.4f}")
+            check(idata.posterior["r0_scales"].shape == (SLICE_CHAINS, draws, 3), "(a) posterior group shape")
+            check(idata.posterior_predictive["obs_incidence"].shape == (SLICE_CHAINS * draws,) + tuple(obs.shape),
+                  "(a) posterior predictive shape")
+            check(all(math.isfinite(v.elpd) for v in scores.values()), "(a) loo or waic not finite")
+    check(not torch.equal(segments[0], segments[1]), "(a) the second segment repeated the first's draws")
+    print(f"      warm-up + capture at {SLICE_CHAINS} chains {capture_s:.1f} s")
+
+    # (b) the forecast row: (a)'s draws resampled to 9,984 members through kernel #2, bands on the card
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    base, y0 = fit.base, fit.y0
+    torch.cuda.synchronize()
+    ms.launch_multistrain_tsit5.launches = 0
+    t = time.perf_counter()
+    members = resample_draws(segments[0], ENSEMBLE, gen)
+    saves = ms.unpack_saves(ms.ensemble_solve_tsit5(
+        y0, base.beta[None, :] * members, base.sigma, base.gamma, base.omega, base.contact_matrix,
+        batch=ENSEMBLE, duration=DAYS, dt=DT))
+    incidence = torch.diff(saves[4], dim=0)  # (days, members, A, K)
+    bands = member_quantiles(incidence, FORECAST_QS, member_axes=1)
+    torch.cuda.synchronize()
+    forecast_s = time.perf_counter() - t
+    launches = {"multistrain_tsit5": ms.launch_multistrain_tsit5.launches}
+    host = np.quantile(incidence.cpu().numpy(), FORECAST_QS, axis=1)
+    band_err = float(np.abs(bands.cpu().numpy() - host).max() / np.abs(host).max())
+    ordered = bool((bands[1:] >= bands[:-1]).all())
+    print(f"  (b) forecast: {ENSEMBLE} members resampled from (a)'s {segments[0].shape[0]} draws, kernel #2 "
+          f"{DAYS:.0f} days (launches {launches['multistrain_tsit5']}), daily incidence bands "
+          f"{tuple(bands.shape)} at {FORECAST_QS}: {forecast_s * 1e3:.1f} ms; against numpy.quantile on the host: "
+          f"max rel err {band_err:.3e} (tol {TOL_BANDS:.0e}); ordered: {ordered} [{smi}]")
+    check(launches["multistrain_tsit5"] > 0, "kernel #2 did not launch on the forecast path")
+    check(bool(torch.isfinite(bands).all()), "non-finite forecast bands")
+    check(band_err <= TOL_BANDS, f"forecast bands vs numpy.quantile: rel err {band_err:.3e}")
+    check(ordered, "forecast bands out of order")
+
+    # (c) bench_nuts.py's bench_svi row: multi-start SVI, eager, then Predictive
+    svi = SVI(fit_fn, AutoMultivariateNormal(fit_fn), Adam(0.1), Trace_ELBO())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    result = svi.run_multistart(SEED, num_steps=SVI_STEPS, num_starts=SVI_STARTS, obs=obs)
+    torch.cuda.synchronize()
+    svi_s = time.perf_counter() - t
+    finite = float(torch.isfinite(result.final_elbos).double().mean())
+    start0 = result.all_losses[0].double().cpu()
+    t = time.perf_counter()
+    post = Predictive(svi.guide, params=result.params, num_samples=SVI_SAMPLES)(SEED, obs=obs)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t
+    rate = SVI_STARTS * SVI_STEPS / svi_s
+    print(f"  (c) SVI AutoMultivariateNormal, Adam(0.1), {SVI_STARTS} starts x {SVI_STEPS} steps, eager: {svi_s:.1f} s, "
+          f"{rate:.1f} ELBO-steps/s; the row's 300 steps would take about {svi_s / SVI_STEPS * 300:.0f} s; final "
+          f"ELBOs finite {finite:.4f} (gate {MIN_FINITE_ELBO}), best start {int(result.best_idx)} ELBO "
+          f"{float(result.final_elbos[result.best_idx]):.2f}; start 0's loss {float(start0[0]):.2f} -> "
+          f"{float(start0[-1]):.2f}; Predictive(guide, {SVI_SAMPLES}) {pred_s:.1f} s, r0_scales mean "
+          f"{np.round(post['r0_scales'].double().mean(dim=0).cpu().numpy(), 4).tolist()} [{smi}]")
+    check(finite >= MIN_FINITE_ELBO, f"(c) finite final ELBOs on {finite:.4f} of the starts")
+    check(float(start0[-1]) < float(start0[0]), "(c) start 0's loss did not fall")
+    check(post["r0_scales"].shape == (SVI_SAMPLES, 3) and bool(torch.isfinite(post["r0_scales"]).all()),
+          "(c) Predictive draws")
+    t = time.perf_counter()
+    svi_err = svi_card_vs_cpu(dev, obs)
+    print(f"      card vs CPU, {SVI_CHECK[0]} starts x {SVI_CHECK[1]} steps, {SVI_CHECK[2]} days, float64, draws "
+          f"recorded on the CPU and replayed: parameters max rel err {svi_err:.3e} (tol {TOL_CARD_CPU:.0e}); "
+          f"{time.perf_counter() - t:.1f} s")
+    check(svi_err <= TOL_CARD_CPU, f"(c) SVI card vs CPU: rel err {svi_err:.3e}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  phase 16: {phase_s:.1f} s (gate {SLICE_BUDGET_S:.0f} s)")
+    check(phase_s <= SLICE_BUDGET_S, f"phase 16 took {phase_s:.1f} s, over its {SLICE_BUDGET_S:.0f} s")
+    return launches
+
+
+def svi_card_vs_cpu(dev, obs) -> float:
+    """``run_multistart`` of the fit at ``SVI_CHECK``'s starts, steps and
+    days in float64 on CPU tensors and on the card, the draws recorded on
+    the CPU and replayed on the card, the guide's locations started at the
+    prior mean (no draws); the max relative error of every start's final
+    parameters."""
+    import torch
+
+    from dynode_tpu_torch.infer import SVI, Adam, AutoMultivariateNormal, Trace_ELBO, init_to_mean
+
+    starts, steps, days = SVI_CHECK
+    cpu = torch.device("cpu")
+    out, tape = {}, None
+    for where in (cpu, dev):
+        model = fit_model(days=days, dtype=torch.float64, device=where)
+        draws = DrawTape(torch.Generator().manual_seed(SEED)) if where == cpu else DrawTape(tape=tape, device=dev)
+        svi = SVI(model, AutoMultivariateNormal(model, init_loc_fn=init_to_mean), Adam(0.1), Trace_ELBO())
+        result = svi.run_multistart(draws, num_steps=steps, num_starts=starts, final_particles=2,
+                                    obs=obs[:days].to(where))
+        out[where.type] = result.all_params
+        tape = draws.tape if where == cpu else tape
+    return max(float((out[dev.type][k].cpu() - v).abs().max() / v.abs().max()) for k, v in out["cpu"].items())
 
 
 def wall_ms(fn):
@@ -1874,6 +2079,9 @@ def main() -> int:
     # ---- 15. bench_nuts.py's fit sampled on the card, and its posterior predictive
     infer_launches = infer_phase(dev, smi, cuda_gen, fit, fit_z)
 
+    # ---- 16. the rest of inference: the processes, SVI and the forecast bands ----
+    forecast_launches = slice_phase(dev, smi, fit)
+
     # ---- the kernels' line: counts of this run's work and the card's bound ---
     obs_attempts = int((obs_stats["n_accepted"] + obs_stats["n_rejected"]).sum())
     obs_bytes = 8 * 2  # a member's save slot: 6 c rows + 2 zero rows, bf16
@@ -1927,6 +2135,8 @@ def main() -> int:
         kernels[list(meta).index(name)]["config_path_launches"] = n
     for name, n in infer_launches.items():  # phase 15's posterior predictive
         kernels[list(meta).index(name)]["infer_path_launches"] = n
+    for name, n in forecast_launches.items():  # phase 16's forecast bands
+        kernels[list(meta).index(name)]["forecast_path_launches"] = n
     kernels[list(meta).index("rk_solve_adaptive")].update(adaptive_facts)
     kernels[list(meta).index("multistrain_tsit5")].update(row_facts)
     kernels[list(meta).index("multistrain_tsit5_2d")].update(facts_2d)

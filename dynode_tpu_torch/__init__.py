@@ -9,7 +9,9 @@ the ODE engine (:mod:`.ode`: the RK solvers, controllers and
 config-based constructors (:mod:`.models`), the carry-over of JAX values
 (:mod:`.convert`), the six ensemble kernels with their plain versions
 (:mod:`.ops`) and Bayesian inference (:mod:`.infer`: handlers, NUTS and
-ChEES over a bank of chains, ``MCMC``, diagnostics). Constructors put
+ChEES over a bank of chains, ``MCMC``, SVI, ``Predictive``, the fit
+processes ``MCMCProcess`` and ``SVIProcess``, state files, model
+comparison, forecast bands, diagnostics). Constructors put
 their tensors on the card unless given ``device="cpu"``. The package imports ``torch`` and never ``jax`` or
 ``pydantic``.
 """
@@ -39,6 +41,15 @@ from .config import (
     get_dynode_init_date_flag,
     set_dynode_init_date_flag,
     simulation_day,
+)
+from .infer import (
+    InferenceProcess,
+    MCMCProcess,
+    SVIProcess,
+    checkpoint_compartment_sizes,
+    resolve_deterministic,
+    sample_distributions,
+    sample_then_resolve,
 )
 from .models.multistrain import (
     MultiStrainInitializer,
@@ -71,6 +82,8 @@ from .typing import (
 from .utils import (
     base_equation,
     conditional_knots,
+    date_to_sim_day,
+    sim_day_to_date,
     drop_keys_with_substring,
     evaluate_cubic_spline,
     flatten_list_parameters,
@@ -88,7 +101,7 @@ from .ops import (
     unpack_saves,
     unpack_saves_2d,
 )
-from .simulation import simulate, simulate_ensemble
+from .simulation import AbstractODEParams, simulate, simulate_ensemble
 
 __all__ = [
     "config",
@@ -103,6 +116,16 @@ __all__ = [
     "utils",
     "simulate",
     "simulate_ensemble",
+    "AbstractODEParams",
+    "sample_then_resolve",
+    "resolve_deterministic",
+    "sample_distributions",
+    "InferenceProcess",
+    "MCMCProcess",
+    "SVIProcess",
+    "checkpoint_compartment_sizes",
+    "sim_day_to_date",
+    "date_to_sim_day",
     "SolverParams",
     "SimulationConfig",
     "Initializer",

@@ -316,6 +316,38 @@ def before(fn: Callable[[Any], Any], member: Validator) -> Validator:
     return check
 
 
+def any_(value):
+    """``Any``: every value, as it is."""
+    return value, EXACT
+
+
+def callable_(value):
+    """``Callable``: any callable, as it is."""
+    if callable(value):
+        return value, EXACT
+    raise _refuse("callable", value)
+
+
+def subclass_of(cls) -> Validator:
+    """``Type[cls]``: ``cls`` or a subclass of it."""
+
+    def check(value):
+        if isinstance(value, type) and issubclass(value, cls):
+            return value, EXACT
+        raise _refuse(f"a subclass of {cls.__name__}", value)
+
+    return check
+
+
+def dict_(value):
+    """A bare ``dict``: any mapping, as a dict."""
+    if isinstance(value, dict):
+        return value, EXACT
+    if isinstance(value, Mapping):
+        return dict(value), LAX
+    raise _refuse("a valid dictionary", value)
+
+
 #: pydantic's constrained number aliases
 PositiveFloat = constrained(float_, gt=0)
 NonNegativeFloat = constrained(float_, ge=0)
@@ -341,6 +373,10 @@ __all__ = [
     "sequence_of",
     "dict_of",
     "before",
+    "any_",
+    "callable_",
+    "subclass_of",
+    "dict_",
     "PositiveFloat",
     "NonNegativeFloat",
     "PositiveInt",

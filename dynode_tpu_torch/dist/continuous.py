@@ -25,10 +25,17 @@ def _draw_shape(d: Distribution, sample_shape) -> tuple:
 
 
 def _normal(generator, shape, like: torch.Tensor) -> torch.Tensor:
+    """Standard normals from a ``torch.Generator`` or a draw seam (an object
+    with ``normal(shape, dtype, device)``, as ``infer.hmc.Draws``)."""
+    if not isinstance(generator, torch.Generator):
+        return generator.normal(tuple(shape), like.dtype, like.device)
     return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
 
 
 def _uniform(generator, shape, like: torch.Tensor) -> torch.Tensor:
+    """Uniforms on [0, 1), from a generator or a draw seam (:func:`_normal`)."""
+    if not isinstance(generator, torch.Generator):
+        return generator.uniform(tuple(shape), like.dtype, like.device)
     return torch.rand(shape, generator=generator, dtype=like.dtype, device=like.device)
 
 

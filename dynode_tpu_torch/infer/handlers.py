@@ -64,14 +64,16 @@ def _fn_device(fn) -> Optional[torch.device]:
 class seed(Messenger):
     """Provide the generator that sites without a value draw from.
 
-    ``rng_seed`` is a ``torch.Generator`` (used as it is, on its device) or
-    an int. For an int the generator is made at the first site that draws,
-    seeded with it, on ``device`` when given, else on the device of that
-    site's distribution parameters, else on the default device (the card).
+    ``rng_seed`` is a ``torch.Generator`` (used as it is, on its device), a
+    draw seam (``infer.hmc.Draws`` or a test's replay of recorded draws,
+    handed to the sites in its place) or an int. For an int the generator
+    is made at the first site that draws, seeded with it, on ``device``
+    when given, else on the device of that site's distribution parameters,
+    else on the default device (the card).
     """
 
     def __init__(self, rng_seed=0, device=None):
-        if isinstance(rng_seed, torch.Generator):
+        if isinstance(rng_seed, torch.Generator) or hasattr(rng_seed, "normal"):
             self.generator = rng_seed
             self._seed = None
         else:

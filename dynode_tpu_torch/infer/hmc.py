@@ -48,10 +48,20 @@ class Draws:
     generator-backed seam draws for every chain and ignores it. A seam that
     replays recorded draws (the tests') hands each active chain its next
     one.
+
+    A seam also stands in for a generator where a model or guide draws:
+    :class:`~dynode_tpu_torch.infer.handlers.seed` takes one, and the
+    normal and uniform families of :mod:`dynode_tpu_torch.dist` draw
+    through its :meth:`normal` and :meth:`uniform`.
     """
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
+
+    @property
+    def device(self) -> torch.device:
+        """The device the draws land on (the generator's)."""
+        return self.generator.device
 
     def normal(self, shape, dtype, device, active: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Standard normals of ``shape`` (momenta)."""

@@ -257,9 +257,10 @@ class NUTS:
 
 
 def _run_device(rng_key, args, kwargs) -> torch.device:
-    """The bank's device: the generator's, else the one device of the
-    tensors among the model's arguments, else the default device (the card)."""
-    if isinstance(rng_key, torch.Generator):
+    """The bank's device: the generator's (or a draw seam's), else the one
+    device of the tensors among the model's arguments, else the default
+    device (the card)."""
+    if isinstance(rng_key, torch.Generator) or hasattr(rng_key, "normal"):
         return torch.device(rng_key.device)
     tensors = [x for x in pytree.tree_leaves((args, kwargs)) if isinstance(x, torch.Tensor)]
     if tensors:
@@ -506,7 +507,9 @@ class MCMC:
         ``warm_start``: a value from :meth:`warm_start_state` of a previous
         run (or :func:`~dynode_tpu_torch.convert.warm_start_from_numpy` of
         a JAX one) -- skips warmup and continues sampling from the saved
-        states with the saved mass matrices and step sizes.
+        states with the saved mass matrices and step sizes. Such a run
+        draws nothing but its transitions from the generator, so given the
+        earlier run's generator it continues that run's chains exactly.
 
         ``consensus_check``: split the bank into this many sub-banks after
         sampling and compare their posterior means against the combined
@@ -565,13 +568,17 @@ class MCMC:
         gen = rng_key if isinstance(rng_key, torch.Generator) else torch.Generator(device=device).manual_seed(int(rng_key))
         draws = Draws(gen)
 
-        tr = get_model_trace(model, gen, *args, **kwargs)
+        # a warm-started run draws its trace and inits (shapes, transforms,
+        # centres) from a scratch generator: it takes nothing from ``gen``
+        # but its transitions, so it continues an earlier run's stream
+        setup_gen = gen if warm_start is None else torch.Generator(device=device).manual_seed(0)
+        tr = get_model_trace(model, setup_gen, *args, **kwargs)
         if not latent_sites(tr):
             raise ValueError("model has no latent sample sites to infer")
         transforms = get_transforms(tr)
         centers = observed_logprob_centers(tr) if self.kernel.center_potential else None
         init_strategy = self.kernel.init_strategy
-        u0 = unconstrain_sample(transforms, initialize_latents(tr, gen, init_strategy))
+        u0 = unconstrain_sample(transforms, initialize_latents(tr, setup_gen, init_strategy))
         flat_pot, _, unravel = flatten_potential(make_potential_fn(model, args, kwargs, transforms, centers=centers), u0)
         self._transforms = transforms
         self._unravel = unravel

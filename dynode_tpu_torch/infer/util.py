@@ -278,6 +278,79 @@ def initialize_latents(
     return out
 
 
+# ---------------------------------------------------------------------------
+# draw seams for banks of replays (multi-start SVI, Predictive)
+# ---------------------------------------------------------------------------
+
+
+def draw_seam(rng_key, device: torch.device):
+    """The draw seam of ``rng_key``: a seam itself (anything with
+    ``normal``, as :class:`~.hmc.Draws` or a test's replay), a
+    ``torch.Generator`` wrapped in :class:`~.hmc.Draws`, or an int seeding a
+    generator on ``device``."""
+    from .hmc import Draws
+
+    if hasattr(rng_key, "normal"):
+        return rng_key
+    if isinstance(rng_key, torch.Generator):
+        return Draws(rng_key)
+    return Draws(torch.Generator(device=device).manual_seed(int(rng_key)))
+
+
+class RecordingDraws:
+    """A draw seam that passes every draw on to ``source`` and records its
+    kind, shape and dtype: the draw signature of one call of a guide."""
+
+    def __init__(self, source):
+        self.source = source
+        self.calls = []
+
+    @property
+    def device(self):
+        return self.source.device
+
+    def normal(self, shape, dtype, device, active=None):
+        self.calls.append(("normal", tuple(shape), dtype))
+        return self.source.normal(shape, dtype, device)
+
+    def uniform(self, shape, dtype, device, active=None):
+        self.calls.append(("uniform", tuple(shape), dtype))
+        return self.source.uniform(shape, dtype, device)
+
+
+class GivenDraws:
+    """A draw seam that hands out the given tensors in order, one per draw
+    (inside a ``torch.func.vmap`` over a bank, each member's slices)."""
+
+    def __init__(self, values, device):
+        self.values = list(values)
+        self.device = device
+
+    def _next(self, shape):
+        value = self.values.pop(0)
+        if tuple(value.shape) != tuple(shape):
+            raise ValueError(f"a given draw has shape {tuple(value.shape)}, the call asks for {tuple(shape)}")
+        return value
+
+    def normal(self, shape, dtype, device, active=None):
+        return self._next(shape)
+
+    def uniform(self, shape, dtype, device, active=None):
+        return self._next(shape)
+
+
+def bank_draws(seam, signature, n: int, repeats: int = 1) -> list:
+    """Draws of ``signature`` (``RecordingDraws.calls``) for a bank of ``n``
+    members, ``repeats`` times in a row: one ``(n, *shape)`` tensor per
+    call, from ``seam`` in the order of the calls (so a seam that hands
+    each member its own stream gives member i its i-th slices)."""
+    out = []
+    for _ in range(repeats):
+        for kind, shape, dtype in signature:
+            out.append(getattr(seam, kind)((n,) + shape, dtype, seam.device))
+    return out
+
+
 __all__ = [
     "get_model_trace",
     "latent_sites",
@@ -295,4 +368,8 @@ __all__ = [
     "init_to_uniform",
     "init_to_value",
     "initialize_latents",
+    "draw_seam",
+    "RecordingDraws",
+    "GivenDraws",
+    "bank_draws",
 ]

@@ -1,5 +1,7 @@
-"""Model families of the port: the multi-strain SEIRS and the production SEIP,
-each with its config, its ODE parameters from a config, and its initializer."""
+"""Model families of the port: SIR, SEIRS (plain and seasonally forced), the
+multi-strain SEIRS and the production SEIP, each with its config, its
+initializer and, where the JAX package has one, its ODE parameters from a
+config."""
 
 from .multistrain import (
     MultiStrainInitializer,
@@ -26,8 +28,25 @@ from .seip import (
     seip_ode,
     seip_ode_ensemble,
 )
+from .seirs import (
+    SEIRSParams,
+    seirs_config,
+    seirs_ode,
+    seirs_seasonal_config,
+    seirs_seasonal_ode,
+)
+from .sir import SIRParams, sir_age_config, sir_config, sir_ode
 
 __all__ = [
+    "SIRParams",
+    "sir_config",
+    "sir_age_config",
+    "sir_ode",
+    "SEIRSParams",
+    "seirs_config",
+    "seirs_ode",
+    "seirs_seasonal_config",
+    "seirs_seasonal_ode",
     "MultiStrainParams",
     "MultiStrainInitializer",
     "multistrain_config",

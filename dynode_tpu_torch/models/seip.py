@@ -544,6 +544,75 @@ def seip_ode(t, state, p: SEIPParams):
     return (dS, dE, dI, dC)
 
 
+def _at_add(x: torch.Tensor, key, value) -> torch.Tensor:
+    """``x.at[key].add(value)``: an out-of-place scatter-add of ``value``
+    into the entries of ``x`` that the basic index ``key`` (slices, ints and
+    one ``...``) selects, through ``index_put`` with accumulation."""
+    key = key if isinstance(key, tuple) else (key,)
+    if Ellipsis in key:
+        at = key.index(Ellipsis)
+        key = key[:at] + (slice(None),) * (x.ndim - len(key) + 1) + key[at + 1:]
+    key = key + (slice(None),) * (x.ndim - len(key))
+    ranges = [torch.arange(n, device=x.device)[k] for n, k in zip(x.shape, key)]
+    kept = [r.ndim for r in ranges]  # 1 for a slice, 0 for an int
+    n_kept = sum(kept)
+    index, pos = [], 0
+    for r in ranges:
+        if r.ndim == 0:
+            index.append(r)
+            continue
+        shape = [1] * n_kept
+        shape[pos] = -1
+        index.append(r.reshape(shape))
+        pos += 1
+    target = torch.broadcast_shapes(*(i.shape for i in index))
+    return x.index_put(tuple(index), torch.broadcast_to(value, target).to(x.dtype), accumulate=True)
+
+
+def seip_ode_scatter(t, state, p: SEIPParams):
+    """The ``.at[slice].add`` form of :func:`seip_ode` (JAX's equivalence
+    reference for the pad-based default): every flow increment is a
+    scatter-add (:func:`_at_add`), every contraction an ``einsum``. Off
+    every hot path."""
+    S, E, I, C = state  # S: (A,J,K,M); E/I/C: (A,J,K,L)
+    t, season, external, nu = _time_terms(t, p, S)
+    infectious = I.sum(dim=(1, 2)) + external.T  # (A, L)
+    mixed = p.contact @ infectious  # (A, L)
+    lam = (p.beta[None, :] * season / p.pop[:, None]) * mixed  # (A, L)
+    escape = _escape(p)  # (L, J, K, M)
+
+    new_exposed = lam[:, None, None, :] * torch.einsum("ljkm,ajkm->ajkl", escape, S)
+    dS = -torch.einsum("al,ljkm->ajkm", lam, escape) * S
+    dE = new_exposed - p.sigma * E
+    dI = p.sigma * E - p.gamma * I
+    dC = new_exposed
+
+    recovered = p.gamma * I
+    rec_to_hist = torch.einsum("ajkl,jlh->ahk", recovered, p.eta_onehot)
+    dS = _at_add(dS, (Ellipsis, 0), rec_to_hist)
+
+    s_by_dose = S.sum(dim=(1, 3))
+    rate = torch.clamp(nu * p.pop[:, None] / torch.clamp(s_by_dose, min=1e-8), max=1.0)
+    out_lower = rate[:, None, :-1, None] * S[:, :, :-1, :]
+    dS = _at_add(dS, (slice(None), slice(None), slice(None, -1), slice(None)), -out_lower)
+    dS = _at_add(dS, (slice(None), slice(None), slice(1, None), 0), out_lower.sum(dim=-1))
+    out_top = rate[:, None, -1, None] * S[:, :, -1, 1:]
+    dS = _at_add(dS, (slice(None), slice(None), -1, slice(1, None)), -out_top)
+    dS = _at_add(dS, (slice(None), slice(None), -1, 0), out_top.sum(dim=-1))
+
+    if p.seasonal_vaccination:
+        phi = _phi_seasonal(t, p.seasonal_vax_tau)
+        top, below = (slice(None), slice(None), -1), (slice(None), slice(None), -2)
+        dS = _at_add(_at_add(dS, top, -phi * S[:, :, -1]), below, phi * S[:, :, -1])
+        dE = _at_add(_at_add(dE, top, -phi * E[:, :, -1]), below, phi * E[:, :, -1])
+        dI = _at_add(_at_add(dI, top, -phi * I[:, :, -1]), below, phi * I[:, :, -1])
+
+    wane_out = p.omega * S
+    dS = dS - wane_out
+    dS = _at_add(dS, (Ellipsis, slice(1, None)), wane_out[..., :-1])
+    return (dS, dE, dI, dC)
+
+
 def seip_ensemble_state(y0, batch: int):
     """Broadcast one initial state to a trailing ensemble axis (views)."""
     return tuple(a[..., None].expand(*a.shape, batch) for a in y0)
@@ -615,6 +684,51 @@ def seip_ode_ensemble(t, state, p: SEIPParams):
     return (dS, dE, dI, dC)
 
 
+def seip_ode_ensemble_scatter(t, state, p: SEIPParams):
+    """The ``.at[slice].add`` form of :func:`seip_ode_ensemble` (JAX's
+    equivalence reference), as :func:`seip_ode_scatter` over a trailing
+    ensemble axis: ``S (A, J, K, M, B)``, ``E/I/C (A, J, K, L, B)``,
+    ``p.beta`` ``(L, B)``. Off every hot path."""
+    S, E, I, C = state
+    t, season, external, nu = _time_terms(t, p, S)
+    infectious = I.sum(dim=(1, 2)) + external.T[..., None]  # (A, L, B)
+    mixed = torch.einsum("ac,clb->alb", p.contact, infectious)
+    lam = (p.beta[None, :, :] * season / p.pop[:, None, None]) * mixed
+    escape = _escape(p)  # (L, J, K, M)
+
+    new_exposed = lam[:, None, None, :, :] * torch.einsum("ljkm,ajkmb->ajklb", escape, S)
+    dS = -torch.einsum("alb,ljkm->ajkmb", lam, escape) * S
+    dE = new_exposed - p.sigma[:, None] * E
+    dI = p.sigma[:, None] * E - p.gamma[:, None] * I
+    dC = new_exposed
+
+    recovered = p.gamma[:, None] * I
+    rec_to_hist = torch.einsum("ajklb,jlh->ahkb", recovered, p.eta_onehot)
+    every = slice(None)
+    dS = _at_add(dS, (every, every, every, 0, every), rec_to_hist)
+
+    s_by_dose = S.sum(dim=(1, 3))  # (A, K, B)
+    rate = torch.clamp(nu[:, :, None] * p.pop[:, None, None] / torch.clamp(s_by_dose, min=1e-8), max=1.0)
+    out_lower = rate[:, None, :-1, None, :] * S[:, :, :-1, :, :]
+    dS = _at_add(dS, (every, every, slice(None, -1), every, every), -out_lower)
+    dS = _at_add(dS, (every, every, slice(1, None), 0, every), out_lower.sum(dim=3))
+    out_top = rate[:, None, -1, None, :] * S[:, :, -1, 1:, :]
+    dS = _at_add(dS, (every, every, -1, slice(1, None), every), -out_top)
+    dS = _at_add(dS, (every, every, -1, 0, every), out_top.sum(dim=2))
+
+    if p.seasonal_vaccination:
+        phi = _phi_seasonal(t, p.seasonal_vax_tau)
+        top, below = (every, every, -1), (every, every, -2)
+        dS = _at_add(_at_add(dS, top, -phi * S[:, :, -1]), below, phi * S[:, :, -1])
+        dE = _at_add(_at_add(dE, top, -phi * E[:, :, -1]), below, phi * E[:, :, -1])
+        dI = _at_add(_at_add(dI, top, -phi * I[:, :, -1]), below, phi * I[:, :, -1])
+
+    wane_out = p.omega[:, None] * S
+    dS = dS - wane_out
+    dS = _at_add(dS, (every, every, every, slice(1, None), every), wane_out[:, :, :, :-1, :])
+    return (dS, dE, dI, dC)
+
+
 __all__ = [
     "SEIPParams",
     "SEIPInitializer",
@@ -625,6 +739,8 @@ __all__ = [
     "seip_initial_state",
     "seip_ode",
     "seip_ode_ensemble",
+    "seip_ode_scatter",
+    "seip_ode_ensemble_scatter",
     "seip_ensemble_state",
     "seip_ensemble_params",
 ]

@@ -582,3 +582,43 @@ def test_capture_that_meets_a_host_sync_raises_and_never_runs_eagerly(cuda):
         assert graph.graph is None and graph.replays == 0
     with pytest.raises(GraphCaptureError, match=r"test_torch_cuda\.py"):
         GraphedPotential(batched_pot_and_grad(copies_from_the_host))(z)
+
+
+@pytest.mark.cuda
+def test_member_quantiles_on_the_card_match_the_cpu(cuda):
+    """``member_quantiles`` of float32 and bf16 saves on the card against the
+    same call on the CPU: the same sort and interpolation, within 1e-6 of
+    the largest band value."""
+    from dynode_tpu_torch.infer import member_quantiles
+
+    x = torch.as_tensor(np.random.default_rng(3).gamma(2.0, 10.0, (200, 2, 3, 8, 1248)), dtype=torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        cpu = member_quantiles(x.to(dtype), (0.05, 0.25, 0.5, 0.75, 0.95))
+        card = member_quantiles(x.to(dtype).to(cuda), (0.05, 0.25, 0.5, 0.75, 0.95))
+        assert card.device.type == "cuda" and card.dtype == torch.float32
+        assert _rel(card.cpu(), cpu) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_an_svi_step_on_the_card_matches_the_cpu(cuda):
+    """One ``SVI.update`` of the fit's AutoMultivariateNormal guide (4 days,
+    float64) given the same draws (recorded on the CPU, replayed on the
+    card): the loss and every parameter within 1e-10."""
+    import chip_smoke
+    from dynode_tpu_torch.infer import SVI, Adam, AutoMultivariateNormal, Trace_ELBO, init_to_mean
+
+    obs = chip_smoke.bench_nuts_obs()[:4]
+    out, tape = {}, None
+    for where in ("cpu", "cuda"):
+        dev = torch.device(where)
+        model_ = chip_smoke.fit_model(days=4, dtype=torch.float64, device=dev)
+        draws = (chip_smoke.DrawTape(torch.Generator().manual_seed(0)) if where == "cpu"
+                 else chip_smoke.DrawTape(tape=tape, device=dev))
+        svi = SVI(model_, AutoMultivariateNormal(model_, init_loc_fn=init_to_mean), Adam(0.1), Trace_ELBO())
+        state = svi.init(draws, obs=obs.to(dev))
+        state, loss = svi.update(state, obs=obs.to(dev))
+        out[where] = (loss, state.params)
+        tape = draws.tape
+    assert _rel(out["cuda"][0].cpu(), out["cpu"][0]) <= 1e-10
+    for k, v in out["cpu"][1].items():
+        assert _rel(out["cuda"][1][k].cpu(), v) <= 1e-10

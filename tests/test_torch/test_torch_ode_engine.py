@@ -350,14 +350,15 @@ def test_inputs_on_two_devices_raise():
 
 def test_import_without_jax_pydantic_or_the_jax_package():
     """``import dynode_tpu_torch`` works with ``jax``, ``pydantic``,
-    ``annotated_types`` and ``dynode_tpu`` blocked, as on a machine that has
-    none of them, and ``simulate``, the config layer (both model configs,
-    their parameters and initial states, a refused value), ``dist``
-    (a draw, ``biject_to``, a ``log_prob``) and a tiny ``infer.MCMC``
-    (NUTS, 2 chains) run there."""
+    ``annotated_types``, ``optax`` and ``dynode_tpu`` blocked, as on a
+    machine that has none of them, and ``simulate``, the config layer (both
+    model configs, their parameters and initial states, a refused value),
+    ``dist`` (a draw, ``biject_to``, a ``log_prob``), a tiny
+    ``infer.MCMC`` (NUTS, 2 chains), a tiny ``SVIProcess`` and
+    ``MCMCProcess`` and ``member_quantiles`` run there."""
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'pydantic', 'annotated_types', 'dynode_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'pydantic', 'annotated_types', 'optax', 'dynode_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import torch, dynode_tpu_torch as d\n"
         "p = d.multistrain_default_params(dtype=torch.float64, device='cpu')\n"
@@ -384,7 +385,18 @@ def test_import_without_jax_pydantic_or_the_jax_package():
         "mc = MCMC(NUTS(m, max_tree_depth=2), num_warmup=3, num_samples=3, num_chains=2)\n"
         "mc.run(torch.Generator().manual_seed(0))\n"
         "assert mc.get_samples()['x'].shape == (6, 2) and bool(torch.isfinite(mc.get_samples()['x']).all())\n"
+        "sp = d.SVIProcess(numpyro_model=m, num_iterations=3, num_samples=5, progress_bar=False,\n"
+        "                  inference_prngkey=torch.Generator().manual_seed(0))\n"
+        "sp.infer()\n"
+        "assert sp.get_samples()['x'].shape == (5, 2)\n"
+        "mp = d.MCMCProcess(numpyro_model=m, num_samples=3, num_warmup=3, num_chains=2, nuts_max_tree_depth=2,\n"
+        "                   progress_bar=False, inference_prngkey=torch.Generator().manual_seed(0))\n"
+        "mp.infer()\n"
+        "assert mp.get_samples()['x'].shape == (6, 2) and mp.to_arviz().posterior['x'].shape == (2, 3, 2)\n"
+        "bands = d.infer.member_quantiles(torch.rand(4, 8, 16), (0.1, 0.5, 0.9))\n"
+        "assert bands.shape == (3, 4) and bool((bands[1:] >= bands[:-1]).all())\n"
         "assert 'pydantic' not in sys.modules or sys.modules['pydantic'] is None\n"
+        "assert 'optax' not in sys.modules or sys.modules['optax'] is None\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -6,7 +6,13 @@
 ``dynode_tpu`` itself is untouched. :class:`Replay` is the port's draw seam
 (:class:`dynode_tpu_torch.infer.hmc.Draws`) fed from such recordings: per
 chain, every active chain takes its next recorded values; for a bank-level
-JAX function (ChEES) one stream holds whole-bank arrays.
+JAX function (ChEES) one stream holds whole-bank arrays. A replay also
+stands in for a generator where a model or guide of the port draws
+(``handlers.seed`` takes it).
+
+:func:`sequential_vmap` replaces ``jax.vmap`` while recording a JAX
+function that maps over a bank (SVI's starts and particles, Predictive's
+draws), so that each member's draws come out concrete, member by member.
 """
 
 import jax
@@ -14,8 +20,24 @@ import numpy as np
 import torch
 
 
-def record(monkeypatch, fn, *args, **kwargs):
-    """``(fn(*args, **kwargs), draws)`` with every JAX draw of the call."""
+def sequential_vmap(fn, in_axes=0, out_axes=0, **_):
+    """``jax.vmap`` as a Python loop over the leading axis (in_axes 0 or
+    None per argument, out_axes 0)."""
+
+    def mapped(*args):
+        axes = in_axes if isinstance(in_axes, (tuple, list)) else (in_axes,) * len(args)
+        sizes = {jax.tree_util.tree_leaves(a)[0].shape[0] for a, ax in zip(args, axes) if ax is not None}
+        (n,) = sizes
+        rows = [fn(*(a if ax is None else jax.tree_util.tree_map(lambda x: x[i], a) for a, ax in zip(args, axes)))
+                for i in range(n)]
+        return jax.tree_util.tree_map(lambda *xs: jax.numpy.stack(xs), *rows)
+
+    return mapped
+
+
+def record(monkeypatch, fn, *args, sequential=False, **kwargs):
+    """``(fn(*args, **kwargs), draws)`` with every JAX draw of the call;
+    with ``sequential``, ``jax.vmap`` runs as :func:`sequential_vmap`."""
     draws = []
     originals = {name: getattr(jax.random, name) for name in ("normal", "uniform", "bernoulli")}
 
@@ -30,6 +52,8 @@ def record(monkeypatch, fn, *args, **kwargs):
     with monkeypatch.context() as m:
         for name in originals:
             m.setattr(jax.random, name, wrap(name))
+        if sequential:
+            m.setattr(jax, "vmap", sequential_vmap)
         with jax.disable_jit():
             out = fn(*args, **kwargs)
     return out, draws
@@ -42,6 +66,9 @@ class Replay:
     ``bank=True``, one list of whole-bank arrays. :meth:`done` says
     whether every recorded draw was taken.
     """
+
+    #: a draw seam's device (the port's distributions read it)
+    device = torch.device("cpu")
 
     def __init__(self, streams, bank=False):
         self.streams = [list(s) for s in streams]
