@@ -137,7 +137,31 @@ compile per CUDA source, all started together; Triton's JIT), then:
     99% of the starts, start 0's loss falls, ELBO-steps per second and the
     row's extrapolated time; on 4 starts, 3 steps and 4 days in float64
     the card's parameters equal the CPU's within 1e-10 given the same
-    draws. Phase 16 takes ``SLICE_BUDGET_S`` or less.
+    draws. Phase 16 takes ``SLICE_BUDGET_S`` or less;
+17. runs the stiff solvers and the mesh split on the card, over a mesh of
+    every visible card (or the one card listed twice, whose shards then
+    run in turn): (a) in float64, the stiff SEIRS of
+    ``examples/seirs_stiff_waning.py`` through ``simulate`` with ``TRBDF2``
+    (the example's tolerances and budget): result 0, the CPU's accepted
+    and rejected steps and its saves within 1e-10, the example's bound
+    against Tsit5 (budget 8,192, on the CPU) and under a quarter of its
+    steps; ``ImplicitEuler`` at looser tolerances within ``TOL_IE`` of
+    Tsit5; Robertson against scipy's Radau (rtol 5e-4, atol 1e-9, mass to
+    1e-9); the multi-strain model at its published widths through
+    ``simulate_ensemble`` of one member against Tsit5 (2e-5); a gradient
+    through TRBDF2 against central differences; (b) 4,096 members of the
+    stiff SEIRS in float32, batch-leading: every result 0, 16 members held
+    to single-member solves (1e-5, equal steps), wall, steps and the
+    device's idle share; (c) the four split kernel entries (#1, #3, #4,
+    #5) at ``obs_max``, ``adaptive_obs``, ``seip_c`` and
+    ``seip_adaptive``'s widths, each bit for bit with the unsplit entry
+    (the adaptive ones with equal statistics), a ragged adaptive split
+    within the solve tolerance, walls and launches; (d)
+    ``simulate_ensemble(mesh=)`` bit for bit on ``engine_lane_10k`` and
+    (b)'s ensemble, ``MCMC(ChEES(...), mesh=)`` at 1,024 chains (the split
+    potential and gradient against the unsplit graph at the initial and
+    final positions), ``SVI.run_multistart(mesh=)`` at 1,024 starts
+    against the unsplit bank. Phase 17 takes ``MESH_BUDGET_S`` or less.
 
 The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -146,6 +170,7 @@ exits non-zero and prints no result. It imports no JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -225,6 +250,33 @@ SVI_CHECK = (4, 3, 4)  # starts, steps, days: the card against the CPU in float6
 MIN_FINITE_ELBO = 0.99  # share of starts whose final ELBO is finite
 SLICE_BUDGET_S = 200.0  # phase 16's time on the card
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# phase 17: the stiff solvers and the mesh split
+STIFF = (0.3, 1 / 3.6, 1 / 7.0, 50.0, 1 / 90.0)  # beta, sigma, gamma, kappa, omega: examples/seirs_stiff_waning.py:64-70
+STIFF_Y0 = (9990.0, 0.0, 10.0, 0.0, 0.0)  # S, E, I, B, R (the example's)
+STIFF_DAYS = 100
+STIFF_TOLS = (1e-6, 1e-4)  # rtol, atol (the example's; states are O(1e4))
+STIFF_BUDGET, TSIT5_BUDGET = 512, 8192  # the example's step budgets
+# the grid engine's steps per save interval for TRBDF2: every slot runs on the
+# card, masked; 5 hold the solve's 257 steps (the default, 8, gives 808 slots)
+STIFF_SPS = 5
+STIFF_AGREE = (5e-3, 1.0)  # TRBDF2 against Tsit5: the example's rtol, atol
+TOL_STIFF_CPU = 1e-10  # the stiff SEIRS on the card against the same call on the CPU: max |d| / max |ref|
+IE_TOLS, IE_BUDGET, IE_SPS = (1e-3, 1e-1), 512, 3  # ImplicitEuler, first order: looser tolerances than TRBDF2's
+TOL_IE = 0.1  # its saves against Tsit5's: max |d| / max |ref| (2.5x the CPU's 4.08e-2)
+ROBER = ((1e-6, 1e-10), (5e-4, 1e-9))  # TRBDF2 tolerances; against Radau (tests/test_ode/test_implicit.py:87-118)
+MS_STIFF = ((1e-7, 1e-9), (1e-9, 1e-11), 1024)  # TRBDF2, Tsit5 tolerances, TRBDF2 budget (test_implicit.py:157-190)
+TOL_MS_STIFF = 2e-5  # max |d| / max |ref| per compartment
+GRAD_DAYS = 30  # the gradient's horizon through TRBDF2, at a constant dt = DT (central differences see the same grid)
+STIFF_ENSEMBLE, STIFF_PICK = 4096, 16  # bench_nuts.py's chain width; members held to single-member solves
+TOL_STIFF_MEMBER = 1e-5
+RAGGED_ADAPTIVE = 2 * 32800  # 32,800 members a shard: not a multiple of block_b 64
+TOL_RAGGED = TOL_BF16  # a ragged split of the adaptive kernel against the unsplit one, bf16 c-row saves (the main
+# path's build of the kernel): the solves agree to their tolerance, the saves to one bf16 rounding
+MESH_CHAINS, MESH_CHEES = 1024, (1, 1)  # oneshot_1024's width; ChEES warmup and draws (cut to phase 17's budget)
+TOL_MESH_POT = 1e-6  # split potential and gradient against the unsplit: max |d| / max |ref| when not bit for bit
+MESH_SVI = (1024, 1, 1)  # starts, steps, final particles (cut to phase 17's budget)
+TOL_MESH_SVI = 1e-10
+MESH_BUDGET_S = 180.0  # phase 17's time on the card
 
 
 def _nonzero(row) -> int:
@@ -432,7 +484,8 @@ def fit_model(days=FIT_DAYS, dtype=None, device=None):
 def engine_phase(dev, smi: str, gen):
     """Phase 13: the ODE engine and ``simulate`` on the card (module
     docstring). Returns the fit of (c) and its chains' positions for
-    phase 14."""
+    phase 14, and (b)'s lane-major solve with its scales and wall for
+    phase 17."""
     import torch
     import torch.utils._pytree as tree
 
@@ -501,7 +554,7 @@ def engine_phase(dev, smi: str, gen):
     print(f"      batch_leading vs lane_major B={LAYOUT_B}: max rel err {rel:.3e} (tol {TOL_ENGINE:.0e}); "
           f"batch_leading {lead_s:.2f} s")
     check(rel <= TOL_ENGINE, f"batch_leading vs lane_major: rel err {rel:.3e}")
-    del lane, lead
+    del lead
 
     print(f"      (a) and (b) took {time.perf_counter() - t_phase:.1f} s")
 
@@ -592,7 +645,7 @@ def engine_phase(dev, smi: str, gen):
           f"{RESULT_MAX_STEPS}), {int(sol.stats['num_steps'])} steps, NaN tail {tail}")
     check(int(sol.result) == RESULT_MAX_STEPS and tail, "an exhausted budget did not flag and NaN-fill")
     print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
-    return fit, fit_z
+    return fit, fit_z, (scales, lane, lane_s)
 
 
 def in_support(constraint, x):
@@ -1245,6 +1298,434 @@ def slice_phase(dev, smi: str, fit) -> dict:
     print(f"  phase 16: {phase_s:.1f} s (gate {SLICE_BUDGET_S:.0f} s)")
     check(phase_s <= SLICE_BUDGET_S, f"phase 16 took {phase_s:.1f} s, over its {SLICE_BUDGET_S:.0f} s")
     return launches
+
+
+@functools.cache
+def stiff_seirs():
+    """``(ode, Params)``: the stiff SEIRS of ``examples/seirs_stiff_waning.py:46-62``
+    on the port, a fast boosting compartment B that decays into R at
+    kappa = 50 per day against weeks-long transmission."""
+    import torch
+
+    from dynode_tpu_torch.struct import pytree_dataclass
+
+    @pytree_dataclass
+    class StiffSEIRSParams:
+        beta: torch.Tensor
+        sigma: torch.Tensor  # E -> I
+        gamma: torch.Tensor  # I -> B
+        kappa: torch.Tensor  # B -> R, the stiff rate
+        omega: torch.Tensor  # R -> S waning
+
+    def stiff_seirs_ode(t, state, p: StiffSEIRSParams):
+        s, e, i, b, r = state
+        n = s + e + i + b + r
+        foi = p.beta * i / n
+        return (
+            -foi * s + p.omega * r,
+            foi * s - p.sigma * e,
+            p.sigma * e - p.gamma * i,
+            p.gamma * i - p.kappa * b,
+            p.kappa * b - p.omega * r,
+        )
+
+    # the hint as a class (this module's annotations are strings): simulate checks the params' type
+    stiff_seirs_ode.__annotations__["p"] = StiffSEIRSParams
+    return stiff_seirs_ode, StiffSEIRSParams
+
+
+def stiff_inputs(dtype, device, beta=None):
+    """``(y0, params)`` of the stiff SEIRS; ``beta`` (a tensor) gives a
+    batch whose other rates are broadcast to its members."""
+    import torch
+
+    _, params = stiff_seirs()
+    y0 = tuple(torch.tensor(v, dtype=dtype, device=device) for v in STIFF_Y0)
+    rates = [torch.tensor(v, dtype=dtype, device=device) for v in STIFF]
+    if beta is not None:
+        rates = [beta] + [r.expand(beta.shape).clone() for r in rates[1:]]
+    return y0, params(*rates)
+
+
+def rel64(got, want) -> float:
+    """max |got - want| / max |want| in float64, over tuples of tensors."""
+    return max(float((g.double().cpu() - w.double().cpu()).abs().max() / w.double().cpu().abs().max())
+               for g, w in zip(got, want))
+
+
+def mesh_phase(dev, smi: str, fit, k) -> dict:
+    """Phase 17: the stiff solvers and the mesh split on the card (module
+    docstring). ``k`` holds the main path's inputs of kernels #1, #3, #4
+    and #5. Returns each kernel's launches on the split entries' path."""
+    import numpy as np
+    import torch
+    from scipy.integrate import solve_ivp
+
+    from dynode_tpu_torch import SolverParams, dist, simulate, simulate_ensemble
+    from dynode_tpu_torch.infer import SVI, Adam, AutoMultivariateNormal, ChEES, MCMC, Trace_ELBO
+    from dynode_tpu_torch.infer.mcmc import graphed_potential, split_pot_and_grad
+    from dynode_tpu_torch.models import multistrain as model
+    from dynode_tpu_torch.ode import (
+        ImplicitEuler,
+        ODETerm,
+        PIDController,
+        SaveAt,
+        TRBDF2,
+        diffeqsolve,
+    )
+    from dynode_tpu_torch.ops import generic as gen
+    from dynode_tpu_torch.ops import generic_triton as gtri
+    from dynode_tpu_torch.ops import seip as tsp
+    from dynode_tpu_torch.ops import sharded
+    from dynode_tpu_torch.parallel import create_mesh
+    from dynode_tpu_torch.parallel.mesh import shard_plan
+    from torch.utils._pytree import tree_leaves
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    f64 = torch.float64
+    n_cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", i) for i in range(n_cards)] if n_cards > 1 else [dev, dev]
+    mesh = create_mesh(("ensemble",), devices=devices)
+    print(f"phase 17: the stiff solvers and the mesh split on the card; mesh {mesh.shape} over "
+          f"{'every visible card' if n_cards > 1 else 'the one card listed twice (its shards run in turn)'}: "
+          f"{[str(d) for d in devices]} [{smi}]")
+    ode, _ = stiff_seirs()
+    rtol, atol = STIFF_TOLS
+
+    def steps(sol):
+        return int(sol.stats["num_accepted"].sum()), int(sol.stats["num_rejected"].sum())
+
+    # (a) stiff solves in float64
+    sp_tr = SolverParams(solver_method=TRBDF2(), ode_solver_rel_tolerance=rtol, ode_solver_abs_tolerance=atol,
+                         step_budget=STIFF_BUDGET, steps_per_save=STIFF_SPS)
+    runs = {}
+    for where in (dev, cpu):
+        y0, p = stiff_inputs(f64, where)
+        t = time.perf_counter()
+        runs[where.type] = (simulate(ode, STIFF_DAYS, y0, p, sp_tr), time.perf_counter() - t)
+    (card, card_s), (host, host_s) = runs[dev.type], runs["cpu"]
+    y0, p = stiff_inputs(f64, cpu)
+    ref = simulate(ode, STIFF_DAYS, y0, p, SolverParams(ode_solver_rel_tolerance=rtol, ode_solver_abs_tolerance=atol,
+                                                         step_budget=TSIT5_BUDGET))
+    err = rel64(card.ys, host.ys)
+    excess = max(float(((a.cpu() - b).abs() - (STIFF_AGREE[1] + STIFF_AGREE[0] * b.abs())).max())
+                 for a, b in zip(card.ys, ref.ys))
+    n_tr, n_ts = sum(steps(card)), sum(steps(ref))
+    print(f"  (a) stiff SEIRS (kappa {STIFF[3]:g}/day, examples/seirs_stiff_waning.py), {STIFF_DAYS} days, "
+          f"TRBDF2 rtol {rtol:g} atol {atol:g} budget {STIFF_BUDGET} ({STIFF_SPS} steps a save interval): result "
+          f"{int(card.result)}, accepted / "
+          f"rejected on the card {steps(card)}, on the CPU {steps(host)}; card vs CPU max rel {err:.3e} (tol "
+          f"{TOL_STIFF_CPU:.0e}); vs Tsit5 (budget {TSIT5_BUDGET}, CPU, {n_ts} steps): max |d| - (atol "
+          f"{STIFF_AGREE[1]:g} + rtol {STIFF_AGREE[0]:g} |ref|) = {excess:.3e} (<= 0); {n_tr} TRBDF2 steps, "
+          f"{n_ts / n_tr:.1f}x fewer (gate 4x); {card_s:.2f} s on the card, {host_s:.2f} s on the CPU [{smi}]")
+    check(int(card.result) == 0, "stiff SEIRS: TRBDF2 did not finish")
+    check(steps(card) == steps(host), f"stiff SEIRS: card and CPU took other steps {steps(card)}, {steps(host)}")
+    check(err <= TOL_STIFF_CPU, f"stiff SEIRS card vs CPU: {err:.3e}")
+    check(excess <= 0.0, f"stiff SEIRS TRBDF2 vs Tsit5: excess {excess:.3e}")
+    check(n_tr < n_ts / 4, f"TRBDF2 took {n_tr} steps, Tsit5 {n_ts}: not a quarter")
+    y0, p = stiff_inputs(f64, dev)
+    t = time.perf_counter()
+    ie = simulate(ode, STIFF_DAYS, y0, p, SolverParams(solver_method=ImplicitEuler(), ode_solver_rel_tolerance=IE_TOLS[0],
+                                                        ode_solver_abs_tolerance=IE_TOLS[1], step_budget=IE_BUDGET,
+                                                        steps_per_save=IE_SPS))
+    ie_s = time.perf_counter() - t
+    ie_err = rel64(ie.ys, ref.ys)
+    print(f"      ImplicitEuler rtol {IE_TOLS[0]:g} atol {IE_TOLS[1]:g} budget {IE_BUDGET} ({IE_SPS} steps a save "
+          f"interval): result {int(ie.result)}, "
+          f"steps {steps(ie)}; vs Tsit5 max |d| / max |ref| {ie_err:.3e} (bound {TOL_IE:g}, first order); "
+          f"{ie_s:.2f} s")
+    check(int(ie.result) == 0 and ie_err <= TOL_IE, f"ImplicitEuler: result {int(ie.result)}, {ie_err:.3e}")
+
+    def rober(t, y, args):
+        y1, y2, y3 = y[0][0], y[0][1], y[0][2]
+        return (torch.stack([-0.04 * y1 + 1e4 * y2 * y3, 0.04 * y1 - 1e4 * y2 * y3 - 3e7 * y2**2, 3e7 * y2**2]),)
+
+    (r_rtol, r_atol), (g_rtol, g_atol) = ROBER
+    t = time.perf_counter()
+    rob = diffeqsolve(ODETerm(rober), TRBDF2(), 0.0, 100.0, None, (torch.tensor([1.0, 0.0, 0.0], dtype=f64, device=dev),),
+                      saveat=SaveAt(ts=np.array([1.0, 10.0, 100.0])),
+                      stepsize_controller=PIDController(rtol=r_rtol, atol=r_atol), max_steps=4096)
+    rob_s = time.perf_counter() - t
+    radau = solve_ivp(lambda t, y: np.array([-0.04 * y[0] + 1e4 * y[1] * y[2],
+                                             0.04 * y[0] - 1e4 * y[1] * y[2] - 3e7 * y[1] ** 2, 3e7 * y[1] ** 2]),
+                      (0, 100), [1.0, 0.0, 0.0], method="Radau", t_eval=[1.0, 10.0, 100.0], rtol=1e-10,
+                      atol=1e-12).y.T
+    got = rob.ys[0].cpu().numpy()
+    rob_excess = float(np.max(np.abs(got - radau) - (g_atol + g_rtol * np.abs(radau))))
+    mass = float(np.max(np.abs(got.sum(axis=-1) - 1.0)))
+    print(f"      Robertson, TRBDF2 rtol {r_rtol:g} atol {r_atol:g}: result {int(rob.result)}, steps {steps(rob)}; "
+          f"vs scipy Radau: max |d| - (atol {g_atol:g} + rtol {g_rtol:g} |ref|) = {rob_excess:.3e} (<= 0); mass "
+          f"drift {mass:.3e} (tol 1e-9); {rob_s:.2f} s")
+    check(int(rob.result) == 0 and rob_excess <= 0.0 and mass <= 1e-9, f"Robertson: {rob_excess:.3e}, {mass:.3e}")
+
+    # the multi-strain model at its published widths; one member through
+    # simulate_ensemble, whose buffered engine steps a chunk at a time (the
+    # grid engine of simulate gives each of the 200 intervals the slots of
+    # its stiffest: on the card every slot runs, masked)
+    (ms_tr, ms_ts, ms_budget) = MS_STIFF
+    p_ms = model.multistrain_default_params(dtype=f64, device=dev)
+    y_ms = model.multistrain_initial_state(dtype=f64, device=dev)
+    p1 = torch.utils._pytree.tree_map(lambda x: x[None].clone(), p_ms)
+    t = time.perf_counter()
+    ms_sol = simulate_ensemble(model.multistrain_ode, int(DAYS), y_ms, p1, SolverParams(
+        solver_method=TRBDF2(), ode_solver_rel_tolerance=ms_tr[0], ode_solver_abs_tolerance=ms_tr[1],
+        step_budget=ms_budget))
+    ms_s = time.perf_counter() - t
+    ms_ref = simulate(model.multistrain_ode, int(DAYS), tuple(x.cpu() for x in y_ms),
+                      torch.utils._pytree.tree_map(lambda x: x.cpu(), p_ms),
+                      SolverParams(ode_solver_rel_tolerance=ms_ts[0], ode_solver_abs_tolerance=ms_ts[1]))
+    ms_err = rel64([x[0] for x in ms_sol.ys], ms_ref.ys)
+    print(f"      multi-strain (A, K) = {tuple(p_ms.contact_matrix.shape[:1]) + tuple(p_ms.beta.shape)}, "
+          f"{sum(x.numel() for x in y_ms)} rows, {DAYS:.0f} days, "
+          f"TRBDF2 rtol {ms_tr[0]:g} atol {ms_tr[1]:g}: result {int(ms_sol.result[0])}, steps {steps(ms_sol)}, "
+          f"{ms_s:.2f} s; vs Tsit5 rtol {ms_ts[0]:g} atol {ms_ts[1]:g} (CPU): max rel {ms_err:.3e} (tol "
+          f"{TOL_MS_STIFF:.0e})")
+    check(int(ms_sol.result[0]) == 0 and ms_err <= TOL_MS_STIFF, f"multi-strain TRBDF2 vs Tsit5: {ms_err:.3e}")
+
+    beta = torch.tensor(STIFF[0], dtype=f64, device=dev, requires_grad=True)
+    sp_grad = SolverParams(solver_method=TRBDF2(), constant_step_size=DT)
+
+    def loss(b):
+        y0, p = stiff_inputs(f64, dev)
+        return simulate(ode, GRAD_DAYS, y0, p.replace(beta=b), sp_grad).ys[2].sum() / 1e4
+
+    t = time.perf_counter()
+    loss(beta).backward()
+    h = FD_STEP * STIFF[0]
+    with torch.no_grad():
+        fd = float((loss(beta.detach() + h) - loss(beta.detach() - h)) / (2 * h))
+    grad_rel = abs(float(beta.grad) - fd) / abs(fd)
+    print(f"      d/dbeta of sum(I) / 1e4 over {GRAD_DAYS} days through TRBDF2 at dt = {DT}: autograd "
+          f"{float(beta.grad):.10e}, "
+          f"central differences (h = {h:g}) {fd:.10e}: rel {grad_rel:.3e} (tol {TOL_FD:.0e}); "
+          f"{time.perf_counter() - t:.1f} s")
+    check(grad_rel <= TOL_FD, f"TRBDF2 gradient vs central differences: {grad_rel:.3e}")
+    print(f"      (a) took {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) a stiff ensemble, float32, batch-leading
+    gen_dev = torch.Generator(device=dev).manual_seed(SEED)
+    betas = dist.Uniform(0.2, 0.4).sample(gen_dev, (STIFF_ENSEMBLE,))
+    y32, p32 = stiff_inputs(torch.float32, dev, beta=betas)
+    sp32 = SolverParams(solver_method=TRBDF2(), ode_solver_rel_tolerance=rtol, ode_solver_abs_tolerance=atol,
+                        step_budget=STIFF_BUDGET)
+
+    def ensemble():
+        return simulate_ensemble(ode, STIFF_DAYS, y32, p32, sp32)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for run in range(3):  # eager: (a) ran the same operations, so no warm-up; the device traced in the last
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if run < 2:
+            ens = ensemble()
+        else:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                ens = ensemble()
+                torch.cuda.synchronize()
+        float(ens.ys[0][-1, -1])
+        walls.append(time.perf_counter() - t)
+    ens_s = statistics.median(walls)
+    n_steps = (ens.stats["num_accepted"] + ens.stats["num_rejected"]).cpu()
+    check(int(ens.result.max()) == 0, "stiff ensemble: a member did not finish")
+    pick = torch.randperm(STIFF_ENSEMBLE, generator=torch.Generator().manual_seed(SEED))[:STIFF_PICK].tolist()
+    member_err, same_steps = 0.0, True
+    t = time.perf_counter()
+    for i in pick:
+        _, p_i = stiff_inputs(torch.float32, dev, beta=betas[i:i + 1])
+        one = simulate_ensemble(ode, STIFF_DAYS, y32, p_i, sp32)
+        member_err = max(member_err, rel64([x[0] for x in one.ys], [x[i] for x in ens.ys]))
+        same_steps &= all(int(one.stats[key][0]) == int(ens.stats[key][i]) for key in ("num_accepted", "num_rejected"))
+    single_s = (time.perf_counter() - t) / STIFF_PICK
+    on_card = [e for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.duration_ns() for e in on_card) / 1e9
+    idle = f"{1.0 - busy_s / walls[2]:.1%} ({len(on_card)} device operations, busy {busy_s:.3f} s of the traced run's " \
+        f"{walls[2]:.2f} s)" if on_card else "not measured (the profiler saw no device time)"
+    print(f"  (b) stiff ensemble: {STIFF_ENSEMBLE} members, beta ~ Uniform(0.2, 0.4), float32, batch_leading, TRBDF2: "
+          f"wall {ens_s:.2f} s (median of 3; host clock), steps per member min / median / max "
+          f"{int(n_steps.min())} / {int(n_steps.median())} / {int(n_steps.max())}, every result 0; device idle share "
+          f"{idle}; {STIFF_PICK} members against single-member solves ({single_s:.2f} s each): max rel "
+          f"{member_err:.3e} (tol {TOL_STIFF_MEMBER:.0e}), equal steps {same_steps} [{smi}]")
+    check(member_err <= TOL_STIFF_MEMBER and same_steps, f"stiff members vs single solves: {member_err:.3e}")
+    print(f"      (a) and (b) took {time.perf_counter() - t_phase:.1f} s")
+
+    # (c) the four split kernel entries at bench widths, against the unsplit ones
+    counters = {"rk_solve": gtri.launch_rk_solve, "rk_solve_adaptive": gtri.launch_rk_solve_adaptive,
+                "seip_rk4": tsp.launch_seip_rk4, "seip_bs3": tsp.launch_seip_bs3}
+    mesh_launches = dict.fromkeys(counters, 0)
+    rhs_ms, y_w, p_w = k["rhs"], k["y_wide"], k["p_wide"]
+    seip_c = dict(save=(3,))
+    cases = (
+        ("rk_solve", f"obs_max B={WIDE}, Tsit5, c rows bf16",
+         lambda: gen.ensemble_solve_kernel(rhs_ms, y_w, p_w, duration=DAYS, dt=DT, **k["obs_kw"]),
+         lambda: sharded.ensemble_solve_kernel_sharded(rhs_ms, y_w, p_w, mesh=mesh, duration=DAYS, dt=DT,
+                                                       **k["obs_kw"])),
+        ("rk_solve_adaptive", f"adaptive_obs B={WIDE}, bosh3, block_b {gen.ADAPTIVE_BLOCK}",
+         lambda: gen.ensemble_solve_kernel_adaptive(rhs_ms, y_w, p_w, **k["adaptive_kw"], **k["obs_kw"]),
+         lambda: sharded.ensemble_solve_kernel_adaptive_sharded(rhs_ms, y_w, p_w, mesh=mesh, **k["adaptive_kw"],
+                                                                **k["obs_kw"])),
+        ("seip_rk4", f"seip_c B={SEIP_WIDE}, RK4, C f32",
+         lambda: tsp.seip_ensemble_solve(k["sy"], k["sp"], k["scales"], duration=DAYS, dt=DT, **seip_c),
+         lambda: sharded.seip_ensemble_solve_sharded(k["sy"], k["sp"], k["scales"], mesh=mesh, duration=DAYS, dt=DT,
+                                                     **seip_c)),
+        ("seip_bs3", f"seip_adaptive B={SEIP_WIDE}, BS3, block_b {tsp.SEIP_ADAPTIVE_BLOCK}, C f32",
+         lambda: tsp.seip_ensemble_solve_adaptive(k["sy"], k["sp"], k["scales"], **k["seip_kw"], **seip_c),
+         lambda: sharded.seip_ensemble_solve_adaptive_sharded(k["sy"], k["sp"], k["scales"], mesh=mesh,
+                                                              **k["seip_kw"], **seip_c)),
+    )
+    for name, what, whole, split in cases:
+        whole_ms, want = median_tree_ms(whole)
+        counter = counters[name]
+        counter.launches = 0
+        split_ms, got = median_tree_ms(split)
+        mesh_launches[name] += counter.launches
+        if isinstance(want, tuple) and isinstance(want[-1], dict):  # (saves, stats)
+            same = all(torch.equal(a, b) for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])))
+            same_stats = all(torch.equal(got[1][key], want[1][key]) for key in want[1])
+        else:
+            same = all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+            same_stats = True
+        print(f"  (c) {name} split ({what}): {counter.launches // 4} launches a call; bit for bit: {same}, stats "
+              f"equal: {same_stats}; split {split_ms:.3f} ms, unsplit {whole_ms:.3f} ms (median of 3) [{smi}]")
+        check(same and same_stats, f"the split {name} entry differs from the unsplit one")
+        check(counter.launches > 0, f"the split {name} entry launched no kernel")
+        del want, got
+    y_r, p_r = y_w[:, :RAGGED_ADAPTIVE].contiguous(), p_w[:, :RAGGED_ADAPTIVE].contiguous()
+    rag_kw = dict(**k["adaptive_kw"], **k["obs_kw"])
+    gtri.launch_rk_solve_adaptive.launches = 0
+    got, st = sharded.ensemble_solve_kernel_adaptive_sharded(rhs_ms, y_r, p_r, mesh=mesh, **rag_kw)
+    mesh_launches["rk_solve_adaptive"] += gtri.launch_rk_solve_adaptive.launches
+    want, _ = gen.ensemble_solve_kernel_adaptive(rhs_ms, y_r, p_r, **rag_kw)
+    rag = rel_err(got, want)[1]
+    print(f"      ragged: B={RAGGED_ADAPTIVE}, {RAGGED_ADAPTIVE // 2} a shard (not a multiple of block_b "
+          f"{gen.ADAPTIVE_BLOCK}), c rows bf16: exhausted {int(st['exhausted_intervals'].sum())}, max rel {rag:.3e} "
+          f"against the unsplit (tol {TOL_RAGGED:.0e}: the solve tolerance, then one bf16 rounding)")
+    check(rag <= TOL_RAGGED and int(st["exhausted_intervals"].sum()) == 0, f"ragged split: {rag:.3e}")
+    del got, want
+
+    # (d) mesh= on the engine and on inference
+    def batch_params(params, s):
+        pb = torch.utils._pytree.tree_map(lambda leaf: leaf.expand((s.shape[0],) + leaf.shape), params)
+        return pb.replace(beta=params.beta[None, :] * s[:, None])
+
+    base, y0 = model.multistrain_default_params(device=dev), model.multistrain_initial_state(device=dev)
+    lane_scales, lane, lane_s = k["lane"]  # phase 13 (b)'s solve
+    lane_p = batch_params(base, lane_scales)
+    sp_c = SolverParams(constant_step_size=DT)
+    for what, call, done in (
+        (f"engine_lane_10k: lane_major B={ENSEMBLE}, Tsit5 dt={DT}, float32, {DAYS:.0f} days (unsplit: phase 13 (b))",
+         lambda m: simulate_ensemble(model.multistrain_ode, int(DAYS), y0, lane_p, sp_c, layout="lane_major", mesh=m),
+         (lane, lane_s)),
+        (f"(b)'s stiff ensemble: batch_leading B={STIFF_ENSEMBLE}, TRBDF2 (unsplit: (b))",
+         lambda m: simulate_ensemble(ode, STIFF_DAYS, y32, p32, sp32, mesh=m), (ens, ens_s)),
+    ):
+        whole, whole_s = done
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = call(mesh)
+        torch.cuda.synchronize()
+        split_s = time.perf_counter() - t
+        same = all(torch.equal(a, b) for a, b in zip(got.ys, whole.ys)) and torch.equal(got.result, whole.result)
+        same &= all(torch.equal(got.stats[key], whole.stats[key]) for key in whole.stats)
+        print(f"  (d) simulate_ensemble(mesh=) {what}: bit for bit {same}; split {split_s:.2f} s, unsplit "
+              f"{whole_s:.2f} s")
+        check(same, f"simulate_ensemble(mesh=) differs: {what}")
+        del whole, got
+
+    chain_mesh = create_mesh(("chain",), devices=devices)
+    plan = shard_plan(chain_mesh, "chain", MESH_CHAINS, "chain bank")
+    days = fit.obs.shape[0]
+    potential, fit_fn = fit.potential, fit_model(days=days, device=dev)
+    if n_cards > 1:
+        # the fit's tensors live on one card: a copy on each card, picked
+        # by the device of the positions or of the observations
+        on_card = {d: (fit_potential(fit.obs, days=days, device=d), fit_model(days=days, device=d)) for d in devices}
+
+        def potential(zb):
+            return on_card[zb.device][0].potential(zb)
+
+        def fit_fn(obs=None):
+            return on_card[obs.device][1](obs=obs)
+
+    z0 = fit.transform.inv(fit.prior.sample(torch.Generator(device=dev).manual_seed(SEED), (MESH_CHAINS,)))
+    shards = {s: graphed_potential(potential, plan.width, 3, torch.float32, plan.place(s),
+                                   mesh=(chain_mesh.key(), "chain")) for s in plan.local}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for s in plan.local:  # warm-up and capture of each card's shard graph at its width, one after another
+        shards[s](z0[s * plan.width:(s + 1) * plan.width].to(plan.place(s)))
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    n_graphs = len({id(g) for g in shards.values()})
+    replay_ms, _ = median_ms(lambda: shards[plan.local[0]](z0[:plan.width])[0])
+    whole = graphed_potential(fit.potential, MESH_CHAINS, 3, torch.float32, dev)  # phase 16's, cached
+    warm, draws = MESH_CHEES
+    mcmc = MCMC(ChEES(fit_fn, batched_potential_fn=potential), num_warmup=warm, num_samples=draws,
+                num_chains=MESH_CHAINS, mesh=chain_mesh, chain_axis="chain")
+    t = time.perf_counter()
+    mcmc.run(torch.Generator(device=dev).manual_seed(SEED), obs=fit.obs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    check(len(mcmc.graphs) == len(plan.local) and all(g is shards[s] for s, g in zip(plan.local, mcmc.graphs)),
+          "the split bank did not replay the shards' cached graphs")
+    split_pag = split_pot_and_grad(plan, shards)
+    pot_err, same = 0.0, True
+    for z in (z0, mcmc.last_state.z):
+        a, b = split_pag(z), whole(z)
+        same &= all(torch.equal(x, y) for x, y in zip(a, b))
+        pot_err = max(pot_err, rel_err(a[0], b[0])[1], rel_err(a[1], b[1])[1])
+    r0 = mcmc.get_samples()["r0_scales"]
+    print(f"  (d) MCMC(ChEES, mesh=) {MESH_CHAINS} chains ({len(plan.local)} shards of {plan.width}), {warm} warmup + "
+          f"{draws} draws: {run_s:.1f} s; shard graph warm-up + capture {capture_s:.1f} s ({n_graphs} graph(s), one a "
+          f"card), replay {replay_ms:.1f} ms (median of 3); split potential and gradient at the initial and "
+          f"final positions bit for bit {same}, max rel {pot_err:.3e} (tol {TOL_MESH_POT:.0e}); draws finite "
+          f"{bool(torch.isfinite(r0).all())} [{smi}]")
+    check(pot_err <= TOL_MESH_POT, f"split potential vs unsplit: {pot_err:.3e}")
+    check(bool(torch.isfinite(r0).all()), "MCMC(mesh=): non-finite draws")
+
+    starts, n_steps_svi, particles = MESH_SVI
+    start_mesh = create_mesh(("start",), devices=devices)
+    svi = SVI(fit_fn, AutoMultivariateNormal(fit_fn), Adam(0.1), Trace_ELBO())
+    fits = []
+    for m in (None, start_mesh):
+        t = time.perf_counter()
+        fits.append(svi.run_multistart(SEED, num_steps=n_steps_svi, num_starts=starts, final_particles=particles,
+                                       mesh=m, obs=fit.obs))
+        torch.cuda.synchronize()
+        fits[-1] = (fits[-1], time.perf_counter() - t)
+    (a, a_s), (b, b_s) = fits
+    finite = torch.isfinite(a.final_elbos)
+    check(torch.equal(finite, torch.isfinite(b.final_elbos)), "SVI(mesh=): other starts' final ELBOs are finite")
+    elbo_err = rel64([b.final_elbos[finite]], [a.final_elbos[finite]])
+    param_err = rel64([b.all_params[key] for key in a.all_params], [a.all_params[key] for key in a.all_params])
+    print(f"  (d) SVI.run_multistart(mesh=) {starts} starts x {n_steps_svi} steps: best start {int(b.best_idx)} "
+          f"(unsplit {int(a.best_idx)}); final ELBOs max rel {elbo_err:.3e}, parameters {param_err:.3e} (tol "
+          f"{TOL_MESH_SVI:.0e}); split {b_s:.1f} s, unsplit {a_s:.1f} s [{smi}]")
+    check(int(a.best_idx) == int(b.best_idx), "SVI(mesh=): another best start")
+    check(elbo_err <= TOL_MESH_SVI and param_err <= TOL_MESH_SVI, f"SVI(mesh=): {elbo_err:.3e}, {param_err:.3e}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  phase 17: {phase_s:.1f} s (gate {MESH_BUDGET_S:.0f} s); split entries' launches {mesh_launches}")
+    check(phase_s <= MESH_BUDGET_S, f"phase 17 took {phase_s:.1f} s, over its {MESH_BUDGET_S:.0f} s")
+    return mesh_launches
+
+
+def median_tree_ms(fn):
+    """:func:`median_ms` of an entry whose result is a tree of tensors
+    (saves and a dict of statistics): (median ms, the last result); the
+    host fetches a scalar of its first tensor."""
+    from torch.utils._pytree import tree_leaves
+
+    out = None
+
+    def call():
+        nonlocal out
+        out = fn()
+        return tree_leaves(out)[0]
+
+    ms, _ = median_ms(call)
+    return ms, out
 
 
 def svi_card_vs_cpu(dev, obs) -> float:
@@ -2071,7 +2552,7 @@ def main() -> int:
     }
 
     # ---- 13. the ODE engine and simulate ---------------------------------------
-    fit, fit_z = engine_phase(dev, smi, cuda_gen)
+    fit, fit_z, lane = engine_phase(dev, smi, cuda_gen)
 
     # ---- 14. config to kernels, and dist on the card -----------------------------
     config_launches = config_phase(dev, smi, cuda_gen, fit, fit_z)
@@ -2081,6 +2562,11 @@ def main() -> int:
 
     # ---- 16. the rest of inference: the processes, SVI and the forecast bands ----
     forecast_launches = slice_phase(dev, smi, fit)
+
+    # ---- 17. the stiff solvers and the mesh split ------------------------------
+    mesh_launches = mesh_phase(dev, smi, fit, dict(
+        rhs=rhs_ms, y_wide=y_wide, p_wide=p_wide, obs_kw=obs_kw, adaptive_kw=adaptive_kw, sy=sy, sp=sp,
+        scales=main_scales, seip_kw=seip_kw, lane=lane))
 
     # ---- the kernels' line: counts of this run's work and the card's bound ---
     obs_attempts = int((obs_stats["n_accepted"] + obs_stats["n_rejected"]).sum())
@@ -2137,6 +2623,8 @@ def main() -> int:
         kernels[list(meta).index(name)]["infer_path_launches"] = n
     for name, n in forecast_launches.items():  # phase 16's forecast bands
         kernels[list(meta).index(name)]["forecast_path_launches"] = n
+    for name, n in mesh_launches.items():  # phase 17's split entries
+        kernels[list(meta).index(name)]["mesh_path_launches"] = n
     kernels[list(meta).index("rk_solve_adaptive")].update(adaptive_facts)
     kernels[list(meta).index("multistrain_tsit5")].update(row_facts)
     kernels[list(meta).index("multistrain_tsit5_2d")].update(facts_2d)

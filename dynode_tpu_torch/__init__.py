@@ -11,12 +11,15 @@ config-based constructors (:mod:`.models`), the carry-over of JAX values
 (:mod:`.ops`) and Bayesian inference (:mod:`.infer`: handlers, NUTS and
 ChEES over a bank of chains, ``MCMC``, SVI, ``Predictive``, the fit
 processes ``MCMCProcess`` and ``SVIProcess``, state files, model
-comparison, forecast bands, diagnostics). Constructors put
+comparison, forecast bands, diagnostics), the stiff solvers (:mod:`.ode`'s
+``TRBDF2``, ``ImplicitEuler``), meshes of devices and process groups
+(:mod:`.parallel`) and the utilities (:mod:`.utils`: logging, epiweeks,
+profiling, the kernels' build directory). Constructors put
 their tensors on the card unless given ``device="cpu"``. The package imports ``torch`` and never ``jax`` or
 ``pydantic``.
 """
 
-from . import config, convert, dist, infer, models, ode, ops, simulation, struct, utils
+from . import config, convert, dist, infer, models, ode, ops, parallel, simulation, struct, utils
 from .config import (
     AgeBin,
     Bin,
@@ -80,14 +83,21 @@ from .typing import (
     UnitIntervalFloat,
 )
 from .utils import (
+    CustomLogFormatter,
     base_equation,
     conditional_knots,
+    date_to_epi_week,
     date_to_sim_day,
-    sim_day_to_date,
     drop_keys_with_substring,
+    enable_compilation_cache,
     evaluate_cubic_spline,
     flatten_list_parameters,
     identify_distribution_indexes,
+    log_decorator,
+    logger,
+    sim_day_to_date,
+    sim_day_to_epiweek,
+    use_logging,
     vectorize_objects,
 )
 from .ode import diffeqsolve
@@ -111,6 +121,7 @@ __all__ = [
     "models",
     "ode",
     "ops",
+    "parallel",
     "simulation",
     "struct",
     "utils",
@@ -126,6 +137,14 @@ __all__ = [
     "checkpoint_compartment_sizes",
     "sim_day_to_date",
     "date_to_sim_day",
+    "sim_day_to_epiweek",
+    "date_to_epi_week",
+    "log",
+    "use_logging",
+    "log_decorator",
+    "CustomLogFormatter",
+    "logger",
+    "enable_compilation_cache",
     "SolverParams",
     "SimulationConfig",
     "Initializer",
@@ -188,3 +207,15 @@ __all__ = [
     "unpack_saves",
     "unpack_saves_2d",
 ]
+
+
+def __getattr__(name):
+    # the module alias the JAX package exports, resolved lazily; the
+    # plotting names stay absent until the plotting utilities are ported
+    if name == "log":
+        from .utils import log as _log_module
+
+        return _log_module
+    if name in utils.VIS_NAMES:
+        return getattr(utils, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

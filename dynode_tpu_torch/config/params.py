@@ -20,7 +20,9 @@ from .strains import ARRAY_LIKE, Strain
 class SolverParams(Model):
     """Solver, tolerances and step policy of :func:`~dynode_tpu_torch.simulate`.
 
-    - ``solver_method``: an explicit RK solver instance (Tsit5 by default).
+    - ``solver_method``: an RK solver instance (Tsit5 by default; ``TRBDF2``
+      or ``ImplicitEuler`` of :mod:`~dynode_tpu_torch.ode.implicit` for a
+      stiff system).
     - ``ode_solver_rel_tolerance``, ``ode_solver_abs_tolerance`` (> 0): the
       adaptive controller's tolerances.
     - ``max_steps`` (> 0): cap on the steps before the solve is flagged

@@ -225,7 +225,7 @@ class SVIProcess(InferenceProcess):
     #: independent jittered-init SVI runs, as one bank; get_samples() draws
     #: from the best-ELBO start
     num_starts = Field(V.PositiveInt, 1)
-    #: sharding the starts over several cards: not ported (raises)
+    #: a Mesh whose axis 'start' splits the starts (SVI.run_multistart(mesh=))
     svi_mesh = Field(V.any_, None)
     #: stddev of the per-start Gaussian jitter of the unconstrained guide locs
     init_jitter = Field(V.float_, 1.0)

@@ -37,6 +37,15 @@ import torch
 import torch.utils._pytree as pytree
 
 from .. import _device
+from ..parallel.mesh import (
+    check_mesh,
+    create_mesh,
+    default_device_count,
+    gather_shards,
+    run_shards,
+    shard_plan,
+    split,
+)
 from . import handlers
 from .chees import ChEES, make_chees_parts
 from .hmc import (
@@ -107,6 +116,26 @@ def generic_pot_and_grad(flat_potential: Callable) -> Callable:
     return pot_and_grad
 
 
+def split_pot_and_grad(plan, parts: dict) -> Callable:
+    """``zb -> (pe, grad)`` of a bank split over a mesh: shard ``s`` of the
+    chains goes to ``parts[s]`` on its device, and the shards' potentials
+    and gradients come back concatenated on ``zb``'s device, where the
+    sampler's state and its bank-wide reductions stay. The chains are
+    independent, so the split does the unsplit bank's arithmetic.
+
+    On a mesh of several cards each shard's potential runs on its card:
+    the model's tensor arguments are copied there for the generic
+    potential, while a ``batched_potential_fn`` must itself compute on the
+    device of the positions it is given."""
+
+    def pot_and_grad(zb):
+        outs = run_shards(plan, lambda s: parts[s](split(zb, plan, s)))
+        pe, grad = gather_shards(plan, outs, dim=0)
+        return pe.to(zb.device), grad.to(zb.device)
+
+    return pot_and_grad
+
+
 class GraphCaptureError(RuntimeError):
     """The potential could not be captured into a CUDA graph."""
 
@@ -162,13 +191,16 @@ class GraphedPotential:
         self.static_z = zb.detach().clone()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with _device.keep_constants(self.constants):
+        # ``torch.cuda.graph``'s default capture stream is one per process,
+        # made on whichever card was current at the first capture: each
+        # graph gets a stream of its own card
+        with torch.cuda.device(dev), _device.keep_constants(self.constants):
             with torch.cuda.stream(side):
                 self.pot_and_grad(self.static_z)
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             try:
-                with torch.cuda.graph(graph):
+                with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
                     with _syncs_raise():
                         self.static_pe, self.static_grad = self.pot_and_grad(self.static_z)
             except RuntimeError as err:
@@ -194,12 +226,17 @@ _EXEC_CACHE: "OrderedDict[tuple, dict]" = OrderedDict()
 _EXEC_CACHE_SIZE = 8
 
 
-def graphed_potential(batched_pot: Callable, num_chains: int, D: int, dtype, device) -> GraphedPotential:
+def graphed_potential(batched_pot: Callable, num_chains: int, D: int, dtype, device, mesh=None) -> GraphedPotential:
     """The cached :class:`GraphedPotential` of ``batched_pot`` for a bank
     of ``num_chains`` x ``D`` in ``dtype`` on ``device`` (at most
     ``_EXEC_CACHE_SIZE`` graphs, least recently used dropped first). The
-    entry holds ``batched_pot`` to pin its identity."""
-    key = (id(batched_pot), int(num_chains), int(D), dtype, str(device))
+    entry holds ``batched_pot`` to pin its identity.
+
+    ``mesh``: the key of the mesh and axis a split bank runs on (None for
+    a whole bank), part of the cache key as in JAX's exec cache: a shard's
+    graph is captured once per device and shard width of that mesh, and
+    the shards of one device share it (each call replays and clones)."""
+    key = (id(batched_pot), int(num_chains), int(D), dtype, str(device), mesh)
     entry = _EXEC_CACHE.get(key)
     if entry is None or entry["fn"] is not batched_pot:
         entry = {"fn": batched_pot, "graph": GraphedPotential(batched_pot_and_grad(batched_pot))}
@@ -293,17 +330,16 @@ class MCMC:
                 "'sequential' (host loop, one chain at a time)"
             )
         if mesh is not None:
-            raise NotImplementedError(
-                "MCMC(mesh=...): sharding the chain bank over several devices "
-                "is not ported yet; run one bank per device"
-            )
+            check_mesh(mesh)
         self.kernel = kernel
         self.num_warmup = int(num_warmup)
         self.num_samples = int(num_samples)
         self.num_chains = int(num_chains)
         self.chain_method = chain_method
         self.progress_bar = progress_bar
-        self.mesh = None
+        #: a :class:`~dynode_tpu_torch.parallel.Mesh` whose ``chain_axis``
+        #: splits the potential and its gradient (:func:`split_pot_and_grad`)
+        self.mesh = mesh
         self.chain_axis = chain_axis
         #: JAX's transitions per compiled call; accepted for its API and
         #: errors only, since the port runs eagerly and syncs the host at
@@ -323,7 +359,9 @@ class MCMC:
         #: per-site max sub-bank z-scores from ``run(consensus_check=k)``
         self.consensus_report: Optional[Dict[str, float]] = None
         #: the :class:`GraphedPotential` of the last run, when it had one
+        #: (the first shard's on a mesh; :attr:`graphs` holds every shard's)
         self.graph: Optional[GraphedPotential] = None
+        self.graphs: list = []
 
     # -- NUTS over the bank --------------------------------------------------
 
@@ -540,15 +578,27 @@ class MCMC:
                     "chees_warm_start_from_guide(..., num_chains=...))."
                 )
         if self.chain_method == "parallel":
-            n_dev = torch.cuda.device_count() if torch.cuda.is_available() else 1
-            warnings.warn(
-                "chain_method='parallel' fell back to a plain vectorized "
-                f"(unsharded) chain bank: {n_dev} device(s) visible and "
-                f"num_chains={self.num_chains} must be divisible by the "
-                "device count for the mesh-sharded layout"
-                + ("" if n_dev <= 1 else " (which is not ported yet)"),
-                stacklevel=2,
-            )
+            # numpyro's "parallel" = one host process per chain (pmap); here
+            # the vectorized bank with its potential split over every card
+            n_dev = default_device_count()
+            if self.mesh is None and n_dev > 1 and self.num_chains % n_dev == 0:
+                self.mesh = create_mesh((self.chain_axis,))
+            if self.mesh is not None:
+                warnings.warn(
+                    "chain_method='parallel' runs as a mesh-sharded "
+                    "vectorized chain bank on this backend (same posterior; "
+                    "chains are split across devices, one shard of the "
+                    "bank's potential per device, rather than host pmap)",
+                    stacklevel=2,
+                )
+            else:
+                warnings.warn(
+                    "chain_method='parallel' fell back to a plain vectorized "
+                    f"(unsharded) chain bank: {max(n_dev, 1)} device(s) visible and "
+                    f"num_chains={self.num_chains} must be divisible by the "
+                    "device count for the mesh-sharded layout",
+                    stacklevel=2,
+                )
         elif self.chain_method == "sequential":
             if isinstance(self.kernel, ChEES):
                 raise ValueError(
@@ -561,6 +611,10 @@ class MCMC:
                     "chain_method='sequential' does not compose with "
                     "warm_start or steps_per_call; use 'vectorized'"
                 )
+        # the split is checked before anything runs
+        plan = None
+        if self.mesh is not None:
+            plan = shard_plan(self.mesh, self.chain_axis, self.num_chains, "chain bank")
         self._model_args = args
         self._model_kwargs = kwargs
         model = self.kernel.model
@@ -596,13 +650,31 @@ class MCMC:
             D, dtype = z0s.shape[-1], z0s.dtype
 
         batched = self.kernel.batched_potential_fn
-        self.graph = None
-        if batched is None:
-            pot_and_grad = generic_pot_and_grad(flat_pot)
-        elif device.type == "cuda" and self.chain_method != "sequential":
-            self.graph = pot_and_grad = graphed_potential(batched, self.num_chains, D, dtype, device)
+        self.graph, self.graphs = None, []
+
+        def bank_part(width, dev):
+            """The potential and gradient of ``width`` chains on ``dev``."""
+            if batched is None:
+                if dev == device:
+                    return generic_pot_and_grad(flat_pot)
+                # the model's tensors go with the shard
+                moved = pytree.tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x,
+                                        (args, kwargs, centers))
+                pot = make_potential_fn(model, moved[0], moved[1], transforms, centers=moved[2])
+                return generic_pot_and_grad(flatten_potential(pot, u0)[0])
+            if dev.type == "cuda" and self.chain_method != "sequential":
+                graph = graphed_potential(batched, width, D, dtype, dev,
+                                          mesh=None if plan is None else (self.mesh.key(), self.chain_axis))
+                self.graphs.append(graph)
+                return graph
+            return batched_pot_and_grad(batched)
+
+        if plan is None:
+            pot_and_grad = bank_part(self.num_chains, device)
         else:
-            pot_and_grad = batched_pot_and_grad(batched)
+            parts = {s: bank_part(plan.width, plan.place(s)) for s in plan.local}
+            pot_and_grad = split_pot_and_grad(plan, parts)
+        self.graph = self.graphs[0] if self.graphs else None
 
         if z0s is not None:
             # reject non-finite starting points: redraw the bad chains up to
@@ -782,4 +854,4 @@ class MCMC:
             print(name, row)
 
 
-__all__ = ["NUTS", "MCMC", "GraphCaptureError", "GraphedPotential", "graphed_potential"]
+__all__ = ["NUTS", "MCMC", "GraphCaptureError", "GraphedPotential", "graphed_potential", "split_pot_and_grad"]

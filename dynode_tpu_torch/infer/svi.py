@@ -30,9 +30,11 @@ import math
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+import torch.utils._pytree as pytree
 
 from ..dist import Delta, MultivariateNormal, Normal
 from ..dist.transforms import biject_to
+from ..parallel.mesh import gather_shards, run_shards, shard_plan, split
 from . import handlers
 from .util import (
     GivenDraws,
@@ -432,16 +434,22 @@ class SVI:
         the guide's draws of each particle, ``(num_starts, ...)`` each; for
         each final particle the same. A seam that gives each start its own
         stream (a replay of JAX's draws) so gives start i JAX's order.
-        ``mesh=`` (sharding the starts over several cards) is not ported.
+
+        ``mesh=`` splits the starts over its axis ``batch_axis``: the
+        bank's draws are made for the whole bank first, on the seam's
+        device, then each device steps its shard of the starts (the
+        model's tensor arguments copied to it; tensors the model holds
+        itself must follow the device of its arguments on a mesh of
+        several cards) and the shards' parameters, optimizer
+        states and losses come back concatenated on the seam's device. So a
+        split bank takes the unsplit bank's draws. ``num_starts`` must
+        divide over the axis (``ValueError`` before anything runs).
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "SVI.run_multistart(mesh=...): sharding the starts over several devices is not ported yet"
-            )
         args = model_kwargs.pop("_args", ())
+        n = int(num_starts)
+        plan = None if mesh is None else shard_plan(mesh, batch_axis, n, "SVI start bank")
         base = self.init(rng_key, _args=args, **model_kwargs)
         seam = base.rng_key
-        n = int(num_starts)
 
         params0 = {}
         for name, v in base.params.items():
@@ -455,24 +463,51 @@ class SVI:
 
         model, guide, loss = self.model, self.guide, self.loss
 
-        def one_step(params, opt_state, noise):
-            def neg_elbo(p):
-                return loss.loss(GivenDraws(noise, seam.device), p, model, guide, *args, **model_kwargs)
+        def bank_fns(device):
+            """The bank's step and final ELBO with the model's tensors on ``device``."""
+            if device == seam.device:
+                a, kw = args, model_kwargs
+            else:
+                a, kw = pytree.tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x,
+                                        (args, model_kwargs))
 
-            grads, loss_val = torch.func.grad_and_value(neg_elbo)(params)
-            updates, opt_state = self.optim.update(grads, opt_state, params)
-            return _apply_updates(params, updates), opt_state, loss_val
+            def one_step(params, opt_state, noise):
+                def neg_elbo(p):
+                    return loss.loss(GivenDraws(noise, device), p, model, guide, *a, **kw)
 
-        def final_elbo(params, noise):
-            draws = GivenDraws(noise, seam.device)
-            losses = [loss.loss(draws, params, model, guide, *args, **model_kwargs) for _ in range(final_particles)]
-            return -torch.mean(torch.stack(losses))
+                grads, loss_val = torch.func.grad_and_value(neg_elbo)(params)
+                updates, opt_state = self.optim.update(grads, opt_state, params)
+                return _apply_updates(params, updates), opt_state, loss_val
+
+            def final_elbo(params, noise):
+                draws = GivenDraws(noise, device)
+                losses = [loss.loss(draws, params, model, guide, *a, **kw) for _ in range(final_particles)]
+                return -torch.mean(torch.stack(losses))
+
+            return torch.func.vmap(one_step), torch.func.vmap(final_elbo)
+
+        if plan is None:
+            bank_step, bank_elbo = bank_fns(seam.device)
+        else:
+            fns = {s: bank_fns(plan.place(s)) for s in plan.local}
+
+            def on_shards(which):
+                def run(*trees):
+                    def shard(s):
+                        cut = pytree.tree_map(lambda x: split(x, plan, s) if isinstance(x, torch.Tensor) else x, trees)
+                        return fns[s][which](*cut)
+
+                    whole = gather_shards(plan, run_shards(plan, shard), dim=0)
+                    return pytree.tree_map(lambda x: x.to(seam.device), whole)
+
+                return run
+
+            bank_step, bank_elbo = on_shards(0), on_shards(1)
 
         if progress_bar:
             print(f"[dynode_tpu_torch.SVI] running {n} starts x {num_steps} steps...")
         params = params0
         opt_state = torch.func.vmap(self.optim.init)(params)
-        bank_step = torch.func.vmap(one_step)
         per_step = getattr(loss, "num_particles", 1)
         losses = []
         for _ in range(int(num_steps)):
@@ -484,7 +519,7 @@ class SVI:
         losses_all = torch.stack(losses, dim=1) if losses else torch.zeros((n, 0))
         noise = bank_draws(seam, self._signature, n, final_particles * per_step)
         with torch.no_grad():
-            elbos = torch.func.vmap(final_elbo)(params, noise)
+            elbos = bank_elbo(params, noise)
         ranked = torch.where(torch.isfinite(elbos), elbos, torch.full_like(elbos, -math.inf))
         best = torch.argmax(ranked)
         if progress_bar:

@@ -1,5 +1,6 @@
-"""The ODE engine of the port: RK solvers and tableaus, step-size
-controllers, save grids and :func:`diffeqsolve`."""
+"""The ODE engine of the port: RK solvers and tableaus, the implicit
+(ESDIRK) solvers for stiff systems, step-size controllers, save grids and
+:func:`diffeqsolve`."""
 
 from .controllers import (
     AbstractStepSizeController,
@@ -7,6 +8,7 @@ from .controllers import (
     ConstantStepSize,
     PIDController,
 )
+from .implicit import AbstractImplicitSolver, ImplicitEuler, TRBDF2
 from .integrate import diffeqsolve
 from .saveat import SaveAt, SubSaveAt
 from .solution import RESULT_MAX_STEPS, RESULT_SUCCESS, Solution
@@ -27,6 +29,7 @@ from .solvers import (
 __all__ = [
     "diffeqsolve", "ODETerm", "AbstractSolver", "Euler", "Heun", "Bosh3", "Tsit5", "Dopri5",
     "RK4_A", "RK4_B", "RK4_C", "METHODS",
+    "AbstractImplicitSolver", "ImplicitEuler", "TRBDF2",
     "AbstractStepSizeController", "ConstantStepSize", "PIDController", "ClipStepSizeController",
     "SaveAt", "SubSaveAt", "Solution", "RESULT_SUCCESS", "RESULT_MAX_STEPS",
 ]

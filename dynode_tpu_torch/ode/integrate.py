@@ -150,20 +150,27 @@ def _member_map(fn, args):
     not 0-d.
 
     ``args`` goes in as its flat tuple of leaves and is rebuilt inside, so
-    that any pytree of parameters maps, whatever its ``None`` fields.
+    that any pytree of parameters maps, whatever its ``None`` fields. The
+    state's leaves go in side by side with them, every input a leaf of the
+    call, which keeps ``vmap``'s handling of its inputs short.
     """
     leaves, spec = pytree.tree_flatten(args)
     dims = tuple(0 if isinstance(x, torch.Tensor) else None for x in leaves)
+    mapped = {}
 
-    def flat(t, y, *flat_args):
-        return fn(t, y, pytree.tree_unflatten(list(flat_args), spec))
+    def mapped_for(t_dim, n_y):
+        if (t_dim, n_y) not in mapped:
+            def flat(t, *ys_and_args):
+                ys, flat_args = ys_and_args[:n_y], ys_and_args[n_y:]
+                return fn(t, ys, pytree.tree_unflatten(list(flat_args), spec))
 
-    mapped = {t_dim: vmap(flat, in_dims=(t_dim, 0) + dims) for t_dim in (None, 0)}
+            mapped[t_dim, n_y] = vmap(flat, in_dims=(t_dim,) + (0,) * n_y + dims)
+        return mapped[t_dim, n_y]
 
     def call(t, y, a):
-        return mapped[0 if torch.is_tensor(t) and t.dim() > 0 else None](
-            t, y, *pytree.tree_leaves(a)
-        )
+        a_leaves = leaves if a is args else pytree.tree_leaves(a)
+        y = tuple(y)
+        return mapped_for(0 if torch.is_tensor(t) and t.dim() > 0 else None, len(y))(t, *y, *a_leaves)
 
     return call
 
@@ -644,7 +651,7 @@ def diffeqsolve(
     save_ts = _device.constant(save_host, device)
 
     if batched:
-        term = ODETerm(_member_map(term.vf, args))
+        term = ODETerm(_member_map(term.vf, args), member_fn=term.vf)
         subs_fn = _member_map(subs_fn, args) if subs_fn is not None else None
 
     # ---- routing -----------------------------------------------------------

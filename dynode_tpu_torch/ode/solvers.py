@@ -30,8 +30,12 @@ import torch
 class ODETerm:
     """Wraps a vector field ``f(t, y, args) -> dy/dt``."""
 
-    def __init__(self, vector_field: Callable):
+    def __init__(self, vector_field: Callable, member_fn: Optional[Callable] = None):
         self.vector_field = vector_field
+        #: where ``vector_field`` maps one member's RHS over a leading
+        #: member axis (a batch-leading ensemble), that RHS: an implicit
+        #: solver maps its whole step over the members with it
+        self.member_fn = member_fn
 
     def vf(self, t, y, args):
         """Evaluate the vector field at ``(t, y, args)``."""
@@ -46,14 +50,24 @@ def _bcast(coeff, leaf):
     return coeff.reshape(coeff.shape + (1,) * (leaf.dim() - coeff.dim()))
 
 
+def _scalars(tree, nb: int) -> bool:
+    """Whether every leaf is one number per member (no dimension past the
+    ``nb`` batch dimensions): then one stack or unbind moves them all."""
+    return all(leaf.dim() == nb for leaf in tree)
+
+
 def _flatten(tree, nb: int):
     """The leaves of ``tree`` side by side in one tensor, each flattened past
     its ``nb`` leading batch dimensions."""
+    if _scalars(tree, nb) and len({leaf.dtype for leaf in tree}) == 1:
+        return torch.stack(tuple(tree), dim=-1)
     return torch.cat([leaf.reshape(leaf.shape[:nb] + (-1,)) for leaf in tree], dim=-1)
 
 
 def _unflatten(flat, like, nb: int):
     """:func:`_flatten` undone: views of ``flat`` shaped as the leaves of ``like``."""
+    if _scalars(like, nb):
+        return flat.unbind(-1)
     sizes = [math.prod(leaf.shape[nb:]) for leaf in like]
     return tuple(part.reshape(leaf.shape) for part, leaf in zip(flat.split(sizes, dim=-1), like))
 

@@ -9,7 +9,8 @@ kernels (``generic_triton.py``); ``seip_ensemble_solve`` and
 ``seip_ensemble_solve_adaptive`` solve the production SEIP ensemble with RK4
 and lockstep BS3(2) in CUDA C++ (``csrc/seip_rk4.cu``, ``csrc/seip_bs3.cu``).
 On CPU tensors each runs its plain PyTorch version; on CUDA tensors it
-launches the kernel or raises.
+launches the kernel or raises. The four ``*_sharded`` entries
+(:mod:`.sharded`) split the members of #1, #3, #4 and #5 over a mesh.
 """
 
 from .generic import (
@@ -42,6 +43,12 @@ from .seip import (
     seip_static_params,
     unpack_members,
 )
+from .sharded import (
+    ensemble_solve_kernel_adaptive_sharded,
+    ensemble_solve_kernel_sharded,
+    seip_ensemble_solve_adaptive_sharded,
+    seip_ensemble_solve_sharded,
+)
 
 __all__ = [
     "RowsRHS",
@@ -68,4 +75,8 @@ __all__ = [
     "seip_solve_reference",
     "seip_solve_adaptive_reference",
     "seip_static_params",
+    "ensemble_solve_kernel_sharded",
+    "ensemble_solve_kernel_adaptive_sharded",
+    "seip_ensemble_solve_sharded",
+    "seip_ensemble_solve_adaptive_sharded",
 ]

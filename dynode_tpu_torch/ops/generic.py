@@ -236,6 +236,55 @@ def check_block_b(block_b: int | None) -> None:
         raise ValueError(f"block_b must be positive, got {block_b}")
 
 
+def _float_rows(y0_rows, p_rows):
+    """``y0_rows`` ``(R, B)`` and ``p_rows`` ``(P, B)`` in float32 (no
+    parameter rows for None)."""
+    y0_rows = torch.as_tensor(y0_rows).to(torch.float32)
+    if y0_rows.ndim != 2:
+        raise ValueError(f"y0_rows must be (R, B), got {tuple(y0_rows.shape)}")
+    if p_rows is None:
+        p_rows = torch.zeros((0, y0_rows.shape[1]), dtype=torch.float32, device=y0_rows.device)
+    return y0_rows, torch.as_tensor(p_rows).to(torch.float32)
+
+
+def solve_args(y0_rows, p_rows=None, *, duration, dt, save_every=1.0, method="tsit5", t0=0.0,
+               save_dtype=torch.float32, save_rows=None, padded_rows=False, block_b=None):
+    """:func:`ensemble_solve_kernel`'s checks of its arguments, none of
+    which depends on the batch width (``ValueError`` with the value):
+    ``(y0_rows, p_rows, (n_steps, save_stride), save_rows)``."""
+    check_block_b(block_b)
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; one of {list(METHODS)}")
+    if save_dtype not in SAVE_DTYPES:
+        raise ValueError(f"save_dtype must be one of {SAVE_DTYPES}, got {save_dtype}")
+    y0_rows, p_rows = _float_rows(y0_rows, p_rows)
+    grid = _grid(duration, dt, save_every)
+    return y0_rows, p_rows, grid, _check_save_rows(save_rows, y0_rows.shape[0])
+
+
+def adaptive_solve_args(y0_rows, p_rows=None, *, duration, save_every=1.0, rtol=1e-4, atol=1e-6, dt0=None,
+                        steps_per_save=8, block_b=None, method="bosh3", save_dtype=torch.float32, t0=0.0,
+                        save_rows=None, padded_rows=False):
+    """:func:`ensemble_solve_kernel_adaptive`'s checks of its arguments,
+    none of which depends on the batch width (``ValueError`` with the
+    value): ``(y0_rows, p_rows, n_saves, save_rows, block_b)``."""
+    if method not in ADAPTIVE_METHODS:
+        raise ValueError(f"unknown method {method!r}; one of {list(ADAPTIVE_METHODS)}")
+    if save_dtype not in SAVE_DTYPES:
+        raise ValueError(f"save_dtype must be one of {SAVE_DTYPES}, got {save_dtype}")
+    y0_rows, p_rows = _float_rows(y0_rows, p_rows)
+    n_saves = int(round(duration / save_every)) + 1
+    if abs((n_saves - 1) * save_every - duration) > 1e-9 * max(1.0, abs(duration)):
+        raise ValueError("duration must be a whole number of save intervals")
+    if n_saves < 2:
+        raise ValueError("duration must cover at least one save interval")
+    block_b = ADAPTIVE_BLOCK if block_b is None else int(block_b)
+    if block_b < 16 or block_b > 1024 or block_b & (block_b - 1):
+        # the kernel's rule (one member per thread), held on every device
+        raise ValueError(f"block_b must be a power of two from 16 to 1024, got {block_b}")
+    return y0_rows, p_rows, n_saves, _check_save_rows(save_rows, y0_rows.shape[0]), block_b
+
+
 def ensemble_solve_kernel_reference(
     rhs, y0_rows, p_rows=None, *, duration, dt, save_every=1.0, method="tsit5", t0=0.0,
 ) -> torch.Tensor:
@@ -303,20 +352,9 @@ def ensemble_solve_kernel(
 
     Returns ``(n_saves, len(save_rows), B)`` saves in ``save_dtype``.
     """
-    check_block_b(block_b)
-    if method not in METHODS:
-        raise ValueError(f"unknown method {method!r}; one of {list(METHODS)}")
-    if save_dtype not in SAVE_DTYPES:
-        raise ValueError(f"save_dtype must be one of {SAVE_DTYPES}, got {save_dtype}")
-    y0_rows = torch.as_tensor(y0_rows).to(torch.float32)
-    if y0_rows.ndim != 2:
-        raise ValueError(f"y0_rows must be (R, B), got {tuple(y0_rows.shape)}")
-    n_rows, batch = y0_rows.shape
-    if p_rows is None:
-        p_rows = torch.zeros((0, batch), dtype=torch.float32, device=y0_rows.device)
-    p_rows = torch.as_tensor(p_rows).to(torch.float32)
-    n_steps, save_stride = _grid(duration, dt, save_every)
-    save_rows = _check_save_rows(save_rows, n_rows)
+    y0_rows, p_rows, (n_steps, save_stride), save_rows = solve_args(
+        y0_rows, p_rows, duration=duration, dt=dt, save_every=save_every, method=method,
+        save_dtype=save_dtype, save_rows=save_rows, block_b=block_b)
     device = _device.common_device(y0_rows, p_rows)
 
     if not _device.uses_kernel(device):
@@ -497,29 +535,11 @@ def ensemble_solve_kernel_adaptive(
     means raise ``steps_per_save``), ``n_accepted`` and ``n_rejected``, of
     shape ``(ceil(B / block_b),)``.
     """
-    if method not in ADAPTIVE_METHODS:
-        raise ValueError(f"unknown method {method!r}; one of {list(ADAPTIVE_METHODS)}")
-    if save_dtype not in SAVE_DTYPES:
-        raise ValueError(f"save_dtype must be one of {SAVE_DTYPES}, got {save_dtype}")
-    y0_rows = torch.as_tensor(y0_rows).to(torch.float32)
-    if y0_rows.ndim != 2:
-        raise ValueError(f"y0_rows must be (R, B), got {tuple(y0_rows.shape)}")
-    n_rows, batch = y0_rows.shape
-    if p_rows is None:
-        p_rows = torch.zeros((0, batch), dtype=torch.float32, device=y0_rows.device)
-    p_rows = torch.as_tensor(p_rows).to(torch.float32)
-    n_saves = int(round(duration / save_every)) + 1
-    if abs((n_saves - 1) * save_every - duration) > 1e-9 * max(1.0, abs(duration)):
-        raise ValueError("duration must be a whole number of save intervals")
-    if n_saves < 2:
-        raise ValueError("duration must cover at least one save interval")
+    y0_rows, p_rows, n_saves, save_rows, block_b = adaptive_solve_args(
+        y0_rows, p_rows, duration=duration, save_every=save_every, block_b=block_b, method=method,
+        save_dtype=save_dtype, save_rows=save_rows)
     if dt0 is None:
         dt0 = save_every / 8.0
-    save_rows = _check_save_rows(save_rows, n_rows)
-    block_b = ADAPTIVE_BLOCK if block_b is None else int(block_b)
-    if block_b < 16 or block_b > 1024 or block_b & (block_b - 1):
-        # the kernel's rule (one member per thread), held on every device
-        raise ValueError(f"block_b must be a power of two from 16 to 1024, got {block_b}")
     device = _device.common_device(y0_rows, p_rows)
     kw = dict(save_every=float(save_every), rtol=float(rtol), atol=float(atol),
               dt0=float(dt0), steps_per_save=int(steps_per_save), method=method,

@@ -812,6 +812,26 @@ def _entry_setup(y0, params, beta_scales, save, save_dtype, packed):
     return save, y0, scales, device
 
 
+def rk4_args(y0, params, beta_scales, *, duration, dt=0.5, save_every=1.0, save=(0, 1, 2, 3),
+             save_dtype=torch.float32, packed=False):
+    """:func:`seip_ensemble_solve`'s checks of its arguments (``ValueError``
+    with the value): ``(save, y0, scales, device, (n_steps, save_stride))``."""
+    return _entry_setup(y0, params, beta_scales, save, save_dtype, packed) + (_seip_grid(duration, dt, save_every),)
+
+
+def bs3_args(y0, params, beta_scales, *, duration, save_every=1.0, rtol=1e-4, atol=1e-3, dt0=None,
+             steps_per_save=8, save=(0, 1, 2, 3), save_dtype=torch.float32, packed=False, block_b=None):
+    """:func:`seip_ensemble_solve_adaptive`'s checks of its arguments
+    (``ValueError`` with the value): ``(save, y0, scales, device, n_saves,
+    block_b)``."""
+    setup = _entry_setup(y0, params, beta_scales, save, save_dtype, packed)
+    n_saves = _n_saves_adaptive(duration, save_every)
+    block_b = SEIP_ADAPTIVE_BLOCK if block_b is None else int(block_b)
+    if block_b not in ADAPTIVE_BLOCKS:
+        raise ValueError(f"block_b must be one of {ADAPTIVE_BLOCKS} (a power of two), got {block_b}")
+    return setup + (n_saves, block_b)
+
+
 def _finish(outs, save_dtype, packed):
     outs = tuple(o.to(save_dtype) for o in outs)
     return tuple(pack_members(o) for o in outs) if packed else outs
@@ -840,8 +860,9 @@ def seip_ensemble_solve(
     be a multiple of ``save_every`` and that of ``dt``. CPU tensors run
     :func:`seip_solve_reference`, CUDA tensors ``csrc/seip_rk4.cu``.
     """
-    save, y0, scales, device = _entry_setup(y0, params, beta_scales, save, save_dtype, packed)
-    n_steps, stride = _seip_grid(duration, dt, save_every)
+    save, y0, scales, device, (n_steps, stride) = rk4_args(
+        y0, params, beta_scales, duration=duration, dt=dt, save_every=save_every, save=save,
+        save_dtype=save_dtype, packed=packed)
     if not _device.uses_kernel(device):
         outs = seip_solve_reference(
             y0, params, scales, duration=duration, dt=dt, save_every=save_every, save=save,
@@ -882,11 +903,9 @@ def seip_ensemble_solve_adaptive(
     ``n_accepted`` and ``n_rejected``. CPU tensors run the plain version,
     CUDA tensors ``csrc/seip_bs3.cu``.
     """
-    save, y0, scales, device = _entry_setup(y0, params, beta_scales, save, save_dtype, packed)
-    n_saves = _n_saves_adaptive(duration, save_every)
-    block_b = SEIP_ADAPTIVE_BLOCK if block_b is None else int(block_b)
-    if block_b not in ADAPTIVE_BLOCKS:
-        raise ValueError(f"block_b must be one of {ADAPTIVE_BLOCKS} (a power of two), got {block_b}")
+    save, y0, scales, device, n_saves, block_b = bs3_args(
+        y0, params, beta_scales, duration=duration, save_every=save_every, save=save, save_dtype=save_dtype,
+        packed=packed, block_b=block_b)
     dt0 = float(save_every / 8.0 if dt0 is None else dt0)
     kw = dict(save_every=float(save_every), rtol=float(rtol), atol=float(atol), dt0=dt0,
               steps_per_save=int(steps_per_save))

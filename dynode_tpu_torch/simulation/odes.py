@@ -251,24 +251,66 @@ def simulate_ensemble(
       (:func:`ensemble_rhs`); one shared dt chain, ``ys`` gain a trailing
       member axis and ``result`` and ``stats`` are ensemble-wide scalars.
 
-    ``mesh`` (sharding over several cards) is not ported yet and raises
-    ``NotImplementedError`` unless None; ``axis_name`` goes with it.
+    ``mesh`` (a :class:`~dynode_tpu_torch.parallel.Mesh`) splits the
+    members over its axis ``axis_name`` (a name or a tuple of names): each
+    device solves its shard, and the whole solution comes back on the
+    mesh's first device, the shards concatenated along the member axis in
+    mesh order (on every process, where the mesh spans several:
+    :func:`~dynode_tpu_torch.parallel.mesh.gather_shards`). The members
+    are independent in the batch-leading layout, and a constant step keeps
+    a lane-major ensemble's members apart too, so both equal the unsplit
+    solve bit for bit. An adaptive lane-major ensemble shares one dt chain
+    over every member, which separate shards would break, so that
+    combination raises ``ValueError``. The member count must divide over
+    the axis (``ValueError`` otherwise, before any solve).
+
     ``donate`` is accepted for the JAX call form and does nothing: the
     solve makes no copy of the parameters that donation would save.
     """
     _check_state(initial_state)
     if layout not in ("batch_leading", "lane_major"):
         raise ValueError(f"unknown ensemble layout: {layout!r}")
-    if mesh is not None:
-        raise NotImplementedError("simulate_ensemble(mesh=...) over several cards is not ported yet")
     batch = next(x for x in pytree.tree_leaves(ode_parameters_batch)
                  if isinstance(x, torch.Tensor)).shape[0]
+    if mesh is not None:
+        return _split_ensemble(ode, duration_days, initial_state, ode_parameters_batch, solver_parameters,
+                               sub_save_indices, save_step, mesh, axis_name, layout, batch)
     if layout == "lane_major":
         return simulate(ensemble_rhs(ode), duration_days, ensemble_state(initial_state, batch),
                         ode_parameters_batch, solver_parameters,
                         sub_save_indices=sub_save_indices, save_step=save_step)
     return _simulate(ode, duration_days, initial_state, ode_parameters_batch, solver_parameters,
                      sub_save_indices, save_step, batch=batch)
+
+
+def _split_ensemble(ode, duration_days, initial_state, params, solver_parameters, sub_save_indices,
+                    save_step, mesh, axis_name, layout, batch) -> Solution:
+    """:func:`simulate_ensemble` with its members split over a mesh axis."""
+    from ..parallel.mesh import gather_shards, run_shards, shard_plan, split
+
+    if layout == "lane_major" and not solver_parameters.constant_step_size > 0.0:
+        raise ValueError(
+            "an adaptive lane_major ensemble shares one dt chain over all its members, which a split "
+            "over a mesh would break into one chain per shard; use layout='batch_leading' (a chain "
+            "per member) or a constant step (SolverParams(constant_step_size=...))"
+        )
+    plan = shard_plan(mesh, axis_name, batch, "ensemble")
+
+    def solve(s):
+        dev = plan.place(s)
+        p = pytree.tree_map(lambda x: split(x, plan, s) if isinstance(x, torch.Tensor) else x, params)
+        y0 = tuple(c.to(dev, non_blocking=True) for c in initial_state)
+        return simulate_ensemble(ode, duration_days, y0, p, solver_parameters, sub_save_indices, save_step,
+                                 layout=layout)
+
+    outs = run_shards(plan, solve)
+    if layout == "batch_leading":
+        return gather_shards(plan, outs, dim=0)
+    # lane-major at a constant step: the member axis trails the saves; the
+    # grid, the step counts and the result are every shard's
+    ys = gather_shards(plan, {s: o.ys for s, o in outs.items()}, dim=-1)
+    first = outs[plan.local[0]]
+    return pytree.tree_map(lambda x: x.to(plan.home), first).replace(ys=ys)
 
 
 def tune_step_budget(

@@ -622,3 +622,165 @@ def test_an_svi_step_on_the_card_matches_the_cpu(cuda):
     assert _rel(out["cuda"][0].cpu(), out["cpu"][0]) <= 1e-10
     for k, v in out["cpu"][1].items():
         assert _rel(out["cuda"][1][k].cpu(), v) <= 1e-10
+
+
+def _split_mesh(dev, where, axis="ensemble"):
+    """``[cuda:0] * 2`` (``"one_card_twice"``) or every visible card
+    (``"every_card"``, skipped below two cards)."""
+    from dynode_tpu_torch.parallel import create_mesh
+
+    if where == "one_card_twice":
+        return create_mesh((axis,), devices=[dev, dev])
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    return create_mesh((axis,))
+
+
+SPLITS = ["one_card_twice", "every_card"]
+
+
+def _on_first_card(x, mesh) -> bool:
+    """Whether ``x`` lies on the mesh's first card (``cuda`` without an
+    index names the current one)."""
+    first = mesh.first_device
+    return x.device == (first if first.index is not None else torch.device("cuda", torch.cuda.current_device()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", SPLITS)
+def test_split_generic_entries(cuda, where):
+    """The split entries of kernels #1 and #3 over one card listed twice
+    and over every card: one launch per shard, the result on the first
+    card; the constant step bit for bit, the adaptive one bit for bit with
+    its stats when ``block_b`` divides the shard (64 of 4,096 / shards),
+    and within 1e-4 when it does not (24 members a shard)."""
+    from dynode_tpu_torch.ops import sharded as sh
+
+    mesh = _split_mesh(cuda, where)
+    n = mesh.shape["ensemble"]
+    params, y0, beta = _inputs(cuda)
+    rhs = ms.multistrain_rows_rhs(params.contact_matrix)
+    y = ms.pack_state(y0, B)
+    p = ms.pack_params(beta, params.sigma, params.gamma, params.omega, B)
+    before = gtri.launch_rk_solve.launches
+    got = sh.ensemble_solve_kernel_sharded(rhs, y, p, mesh=mesh, duration=DAYS, dt=0.5)
+    assert gtri.launch_rk_solve.launches == before + n and _on_first_card(got, mesh)
+    assert torch.equal(got, gen.ensemble_solve_kernel(rhs, y, p, duration=DAYS, dt=0.5))
+    kw = dict(duration=DAYS, rtol=1e-4, atol=1e-6, block_b=64)
+    before = gtri.launch_rk_solve_adaptive.launches
+    got, st = sh.ensemble_solve_kernel_adaptive_sharded(rhs, y, p, mesh=mesh, **kw)
+    assert gtri.launch_rk_solve_adaptive.launches == before + n
+    want, want_st = gen.ensemble_solve_kernel_adaptive(rhs, y, p, **kw)
+    assert torch.equal(got, want) and all(torch.equal(st[k], want_st[k]) for k in st)
+    y_r, p_r = y[:, :24 * n].contiguous(), p[:, :24 * n].contiguous()
+    got, st = sh.ensemble_solve_kernel_adaptive_sharded(rhs, y_r, p_r, mesh=mesh, **kw)
+    want, _ = gen.ensemble_solve_kernel_adaptive(rhs, y_r, p_r, **kw)
+    assert st["exhausted_intervals"].shape == (n,) and _rel(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", SPLITS)
+def test_split_seip_entries(cuda, where):
+    """The split entries of kernels #4 and #5 over one card listed twice
+    and over every card at B = 2,048: one launch per shard, bit for bit
+    with the unsplit entries (``block_b`` 4 divides each shard), the stats
+    concatenated."""
+    from dynode_tpu_torch.ops import sharded as sh
+
+    mesh = _split_mesh(cuda, where)
+    n = mesh.shape["ensemble"]
+    params, y0, scales = _seip_inputs(cuda, 2048)
+    before = tsp.launch_seip_rk4.launches
+    got = sh.seip_ensemble_solve_sharded(y0, params, scales, mesh=mesh, duration=60.0, save=(3,))
+    assert tsp.launch_seip_rk4.launches == before + n and _on_first_card(got[0], mesh)
+    assert torch.equal(got[0], tsp.seip_ensemble_solve(y0, params, scales, duration=60.0, save=(3,))[0])
+    kw = dict(duration=60.0, rtol=1e-4, atol=1e-3, save=(3,), block_b=4)
+    before = tsp.launch_seip_bs3.launches
+    got, st = sh.seip_ensemble_solve_adaptive_sharded(y0, params, scales, mesh=mesh, **kw)
+    assert tsp.launch_seip_bs3.launches == before + n
+    want, want_st = tsp.seip_ensemble_solve_adaptive(y0, params, scales, **kw)
+    assert torch.equal(got[0], want[0]) and all(torch.equal(st[k], want_st[k]) for k in st)
+
+
+def _unit_gaussian(mu, scale_tril):
+    from dynode_tpu_torch import dist
+    from dynode_tpu_torch.infer import handlers
+
+    handlers.sample("x", dist.MultivariateNormal(mu, scale_tril))
+
+
+def _unit_potential(zb):
+    """``_unit_gaussian``'s potential less its constant, elementwise over
+    the chains, on the device of ``zb``."""
+    return 0.5 * (zb[:, 0] * zb[:, 0] + zb[:, 1] * zb[:, 1] + zb[:, 2] * zb[:, 2])
+
+
+@pytest.mark.cuda
+def test_engine_and_inference_split_over_every_card(cuda):
+    """``mesh=`` over every card (two or more): ``simulate_ensemble`` of the
+    stiff SEIRS (TRBDF2, batch-leading, 256 members a card) and of the
+    multi-strain model (lane-major, constant step) bit for bit with the
+    unsplit solve on the first card; ``MCMC`` with a batched potential,
+    its shard graph captured on each card one after another, and with the
+    model's generic potential, its draws equal to the unsplit bank's, also
+    under ``chain_method="parallel"`` with that mesh and with the one it
+    builds itself; and
+    ``SVI.run_multistart`` over every card equal to the unsplit bank."""
+    import chip_smoke
+
+    from dynode_tpu_torch import SolverParams, dist, simulate_ensemble
+    from dynode_tpu_torch.infer import MCMC, NUTS, SVI, Adam, AutoNormal, ChEES, Trace_ELBO, handlers
+    from dynode_tpu_torch.ode import TRBDF2
+
+    mesh = _split_mesh(cuda, "every_card")
+    n = mesh.shape["ensemble"]
+    ode, _ = chip_smoke.stiff_seirs()
+    y32, p32 = chip_smoke.stiff_inputs(torch.float32, cuda, beta=torch.linspace(0.2, 0.4, 256 * n, device=cuda))
+    sp = SolverParams(solver_method=TRBDF2(), ode_solver_rel_tolerance=1e-6, ode_solver_abs_tolerance=1e-4,
+                      step_budget=512)
+    params, y0, beta = _inputs(cuda, batch=16 * n)
+    lane_p = _batched(params, beta[:, 0] / params.beta[0])
+    sp_c = SolverParams(constant_step_size=0.5)
+    for solve in (lambda m: simulate_ensemble(ode, 100, y32, p32, sp, mesh=m),
+                  lambda m: simulate_ensemble(model.multistrain_ode, 60, y0, lane_p, sp_c, layout="lane_major",
+                                              mesh=m)):
+        got, want = solve(mesh), solve(None)
+        assert all(_on_first_card(a, mesh) and torch.equal(a, b) for a, b in zip(got.ys, want.ys))
+        assert all(torch.equal(got.stats[k], want.stats[k]) for k in want.stats)
+        assert torch.equal(got.result, want.result)
+
+    chains = 8 * n
+    args = (torch.zeros(3, device=cuda), torch.eye(3, device=cuda))
+    kernels = (lambda: NUTS(_unit_gaussian, max_tree_depth=4, batched_potential_fn=_unit_potential),
+               lambda: ChEES(_unit_gaussian, batched_potential_fn=_unit_potential),
+               lambda: NUTS(_unit_gaussian, max_tree_depth=4))
+    whole = []
+    for make in kernels:
+        runs = []
+        for m in (None, _split_mesh(cuda, "every_card", "chain")):
+            mc = MCMC(make(), num_warmup=10, num_samples=10, num_chains=chains, mesh=m, chain_axis="chain")
+            mc.run(torch.Generator(device=cuda).manual_seed(3), *args)
+            runs.append(mc)
+        whole.append(runs[0].get_samples()["x"])
+        assert torch.equal(whole[-1], runs[1].get_samples()["x"])
+        if make().batched_potential_fn is not None:
+            assert sorted(str(g.static_z.device) for g in runs[1].graphs) == [f"cuda:{i}" for i in range(n)]
+            assert all(g.replays > 0 for g in runs[1].graphs)
+    for given in (_split_mesh(cuda, "every_card", "chain"), None):  # None: the mesh over every card built by MCMC
+        mc = MCMC(kernels[0](), num_warmup=10, num_samples=10, num_chains=chains, chain_method="parallel",
+                  mesh=given)
+        with pytest.warns(UserWarning, match="mesh-sharded vectorized"):
+            mc.run(torch.Generator(device=cuda).manual_seed(3), *args)
+        assert mc.mesh.shape == {"chain": n} and torch.equal(mc.get_samples()["x"], whole[0])
+
+    def mean_model(obs):
+        mu = handlers.sample("mu", dist.Normal(torch.zeros((), device=obs.device), 1.0))
+        handlers.sample("obs", dist.Normal(mu, 1.0), obs=obs)
+
+    obs = torch.as_tensor(np.random.default_rng(0).normal(0.5, 1.0, 32), dtype=torch.float32, device=cuda)
+    svi = SVI(mean_model, AutoNormal(mean_model), Adam(0.1), Trace_ELBO())
+    fits = [svi.run_multistart(0, num_steps=3, num_starts=4 * n, mesh=m, obs=obs)
+            for m in (None, _split_mesh(cuda, "every_card", "start"))]
+    assert int(fits[0].best_idx) == int(fits[1].best_idx)
+    assert torch.equal(fits[0].final_elbos, fits[1].final_elbos)
+    assert all(torch.equal(fits[0].all_params[k], fits[1].all_params[k]) for k in fits[0].all_params)

@@ -163,3 +163,31 @@ def test_find_reasonable_step_size_bank_matches_jax_given_its_draws(monkeypatch,
                                               tc.init_bank_state(pag_t, torch.as_tensor(z0)), replay)
     assert replay.done()
     _close(eps_t, eps_j, rtol=TOL_TRANSITION)
+
+
+def test_chees_chunked_and_mesh():
+    """``MCMC(ChEES(...), steps_per_call=, mesh=)`` (``test_chees.py``'s
+    mesh case) on a Normal-mean model: the bank's potential split over 8
+    CPU devices gives the unsplit bank's draws bit for bit (the sampler's
+    state and its pooled adaptation stay on the first device), and the
+    posterior mean within 0.05 of the conjugate one."""
+    from dynode_tpu_torch import dist
+    from dynode_tpu_torch.infer import MCMC, ChEES, handlers
+    from dynode_tpu_torch.parallel import create_mesh
+
+    data = torch.as_tensor(np.random.default_rng(5).normal(0.7, 1.0, 64))
+
+    def toy_model(obs=None):
+        mu = handlers.sample("mu", dist.Normal(0.0, 1.0))
+        handlers.sample("x", dist.Normal(mu, 1.0), obs=obs)
+
+    mesh = create_mesh(("chain",), devices=[torch.device("cpu", i) for i in range(8)])
+    draws = []
+    for m in (None, mesh):
+        mc = MCMC(ChEES(toy_model), num_warmup=64, num_samples=48, num_chains=16, steps_per_call=25, mesh=m,
+                  chain_axis="chain")
+        mc.run(torch.Generator().manual_seed(2), obs=data)
+        draws.append(mc.get_samples()["mu"])
+    assert draws[1].shape == (16 * 48,)
+    assert torch.equal(draws[0], draws[1])
+    assert abs(float(draws[1].mean()) - float(data.mean()) * 64 / 65) < 0.05

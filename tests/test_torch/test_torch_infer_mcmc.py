@@ -195,7 +195,7 @@ def test_errors_match_jax():
                            steps_per_call=2).run(0))
     _messages(lambda: jmcmc.MCMC(jmcmc.NUTS(lambda: None), num_warmup=1, num_samples=1).run(jax.random.PRNGKey(0)),
               lambda: MCMC(NUTS(lambda: None), num_warmup=1, num_samples=1).run(_gen()))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(TypeError, match="Mesh"):
         MCMC(NUTS(model), num_warmup=1, num_samples=1, mesh=object())
 
 
@@ -232,3 +232,110 @@ def test_deterministic_sites_summary_consensus_and_stuck_warning(capsys):
                        batched_potential_fn=gaussian_potential), num_warmup=0, num_samples=5, num_chains=4)
     with pytest.warns(UserWarning, match="near-\\)constant samples"):
         frozen.run(_gen(9))
+
+
+CPU8 = [torch.device("cpu", i) for i in range(8)]
+
+
+def elementwise_potential(zb):
+    """The Gaussian's density with a diagonal precision, elementwise."""
+    d = zb - torch.as_tensor(MU)
+    return 0.5 * torch.sum(d * d * torch.as_tensor(np.diag(PREC)), dim=-1)
+
+
+@pytest.mark.parametrize("kernel", ["nuts_generic", "nuts_batched", "chees_generic"])
+def test_sharded_bank_matches_unsharded(kernel):
+    """``MCMC(mesh=)`` splits the bank's potential and gradient over 8 CPU
+    devices; the sampler's state and its bank-wide reductions stay on the
+    first. So the split bank does the unsplit bank's arithmetic: equal
+    draws and statistics bit for bit (JAX promises its split bank only in
+    distribution, ``test_mesh.py``). The model's generic potential, and a
+    batched one that is elementwise over the chains: a matrix product's
+    rounding may change with the number of rows on the CPU."""
+    from dynode_tpu_torch.parallel import create_mesh
+
+    make = {
+        "nuts_generic": lambda: NUTS(model, max_tree_depth=4),
+        "nuts_batched": lambda: NUTS(model, max_tree_depth=4, batched_potential_fn=elementwise_potential),
+        "chees_generic": lambda: ChEES(model),
+    }[kernel]
+    mesh = create_mesh(("chains",), devices=CPU8)
+    runs = []
+    for m in (None, mesh):
+        mc = MCMC(make(), num_warmup=30, num_samples=20, num_chains=16, mesh=m, chain_axis="chains")
+        mc.run(_gen(4))
+        runs.append(mc)
+    assert torch.equal(runs[0].get_samples()["x"], runs[1].get_samples()["x"])
+    for key, val in runs[0].get_extra_fields().items():
+        assert torch.equal(val, runs[1].get_extra_fields()[key]), key
+    assert runs[1].mesh is mesh
+
+
+def test_sharded_chains_mcmc():
+    """``test_mesh.py``'s case: NUTS with ``mesh=`` over 8 devices, 8
+    chains of a Normal-mean model; the posterior mean within 0.1."""
+    from dynode_tpu_torch.parallel import create_mesh
+
+    data = torch.as_tensor(np.random.RandomState(0).randn(64) + 0.5, dtype=torch.float32)
+
+    def mean_model(obs=None):
+        mu = handlers.sample("mu", dist.Normal(0.0, 1.0))
+        handlers.sample("x", dist.Normal(mu, 1.0), obs=obs)
+
+    mc = MCMC(NUTS(mean_model, max_tree_depth=6), num_warmup=50, num_samples=50, num_chains=8,
+              mesh=create_mesh(("chain",), devices=CPU8))
+    mc.run(_gen(0), obs=data)
+    samples = mc.get_samples(group_by_chain=True)["mu"]
+    assert samples.shape == (8, 50)
+    assert abs(float(samples.mean()) - float(data.mean()) * 64 / 65) < 0.1
+    with pytest.raises(ValueError, match="chain bank width 6 must divide over the 8-device"):
+        MCMC(NUTS(mean_model), num_warmup=1, num_samples=1, num_chains=6,
+             mesh=create_mesh(("chain",), devices=CPU8)).run(_gen(0), obs=data)
+
+
+def test_graph_cache_key_includes_the_mesh():
+    """``test_exec_cache.py``'s mesh case for the port's cache of CUDA
+    graphs: a split bank's shard graph is another entry than a whole
+    bank's of the same width, one per device and width of that mesh, and
+    a repeated split run is served the same graph. (The graph is captured
+    at its first call, on the card; the cache is checked here.)"""
+    from dynode_tpu_torch.infer import mcmc as tm
+    from dynode_tpu_torch.parallel import create_mesh
+
+    tm._EXEC_CACHE.clear()
+    mesh = create_mesh(("chains",), devices=CPU8[:2])
+    dev = torch.device("cuda", 0)
+    whole = tm.graphed_potential(gaussian_potential, 8, D, torch.float64, dev)
+    shard = tm.graphed_potential(gaussian_potential, 8, D, torch.float64, dev, mesh=(mesh.key(), "chains"))
+    assert shard is not whole and len(tm._EXEC_CACHE) == 2
+    again = tm.graphed_potential(gaussian_potential, 8, D, torch.float64, dev, mesh=(mesh.key(), "chains"))
+    assert again is shard and len(tm._EXEC_CACHE) == 2
+    other = create_mesh(("chains",), devices=CPU8[:4])
+    assert tm.graphed_potential(gaussian_potential, 8, D, torch.float64, dev,
+                                mesh=(other.key(), "chains")) is not shard
+    tm._EXEC_CACHE.clear()
+
+
+def test_parallel_warning_states_sharded_when_mesh_created(monkeypatch):
+    """``chain_method="parallel"`` with several cards and a chain count
+    that divides them builds a mesh over every card and says so in JAX's
+    words (``test_advice_regressions_r4.py``); here 8 CPU devices stand in
+    for the cards. With an explicit mesh it warns the same; a chain count
+    that does not divide the cards falls back to the unsplit bank."""
+    from dynode_tpu_torch.infer import mcmc as tm
+    from dynode_tpu_torch.parallel import create_mesh
+
+    monkeypatch.setattr(tm, "default_device_count", lambda: 8)
+    monkeypatch.setattr(tm, "create_mesh", lambda axes: create_mesh(axes, devices=CPU8))
+    mesh = create_mesh(("chain",), devices=CPU8)
+    for given in (None, mesh):
+        mc = MCMC(NUTS(model, max_tree_depth=2, batched_potential_fn=elementwise_potential), num_warmup=2,
+                  num_samples=2, num_chains=16, chain_method="parallel", mesh=given, rescue_stuck_chains=False)
+        with pytest.warns(UserWarning, match="mesh-sharded vectorized"):
+            mc.run(_gen())
+        assert mc.mesh.shape == {"chain": 8} and (given is None or mc.mesh is given)
+    mc = MCMC(NUTS(model, max_tree_depth=2, batched_potential_fn=elementwise_potential), num_warmup=2,
+              num_samples=2, num_chains=3, chain_method="parallel", rescue_stuck_chains=False)
+    with pytest.warns(UserWarning, match="fell back to a plain vectorized"):
+        mc.run(_gen())
+    assert mc.mesh is None

@@ -207,3 +207,29 @@ def test_nuts_kwargs_reach_the_kernel(sampler):
     assert mcmc.get_samples()["mu"].shape == (24,)
     if sampler == "nuts":
         assert MCMCProcess(numpyro_model=model, progress_bar=False, **MCMC_BASE).infer(obs=OBS).kernel.dense_mass is True
+
+
+def test_processes_pass_a_mesh_through():
+    """``MCMCProcess(mcmc_kwargs={"mesh": ...})`` and ``SVIProcess(svi_mesh=)``
+    hand the mesh to ``MCMC`` and ``run_multistart``: the processes' draws
+    equal the unsplit processes' bit for bit, over 4 CPU devices."""
+    from dynode_tpu_torch.parallel import create_mesh
+
+    cpu4 = [torch.device("cpu", i) for i in range(4)]
+    draws = []
+    for kwargs in ({}, {"mesh": create_mesh(("chain",), devices=cpu4)}):
+        proc = MCMCProcess(numpyro_model=model, progress_bar=False, sampler="chees", inference_prngkey=3,
+                           mcmc_kwargs=kwargs, nuts_kwargs={"batched_potential_fn": potential},
+                           **{**MCMC_BASE, "num_chains": 8})
+        mcmc = proc.infer(obs=OBS)
+        assert mcmc.mesh is kwargs.get("mesh")
+        draws.append(proc.get_samples()["mu"])
+    assert torch.equal(draws[0], draws[1])
+    fits = []
+    for mesh in (None, create_mesh(("start",), devices=cpu4)):
+        proc = SVIProcess(numpyro_model=model, progress_bar=False, guide_init_strategy=init_to_mean, num_starts=4,
+                          svi_mesh=mesh, inference_prngkey=torch.Generator().manual_seed(0), **SVI_BASE)
+        proc.infer(obs=OBS)
+        fits.append(proc._inference_state)
+    assert torch.equal(fits[0].final_elbos, fits[1].final_elbos)
+    assert int(fits[0].best_idx) == int(fits[1].best_idx)

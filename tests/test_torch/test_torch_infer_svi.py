@@ -197,9 +197,16 @@ def test_a_non_finite_elbo_never_wins():
 
 
 def test_run_multistart_refuses_a_mesh():
+    """A mesh that is not the port's ``Mesh``, or whose axis the starts do
+    not divide over, is refused before anything runs."""
+    from dynode_tpu_torch.parallel import create_mesh
+
     svi = tsvi.SVI(t_model, tsvi.AutoNormal(t_model), tsvi.Adam(0.1))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         svi.run_multistart(0, 2, 2, mesh=object(), obs=torch.as_tensor(OBS))
+    mesh = create_mesh(("start",), devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="width 6 must divide over the 4-device"):
+        svi.run_multistart(0, 2, 6, mesh=mesh, obs=torch.as_tensor(OBS))
 
 
 @pytest.mark.parametrize("name", GUIDES)
@@ -221,3 +228,23 @@ def test_chees_warm_start_from_guide_matches_jax(name, monkeypatch):
     if name == "AutoDelta":
         with pytest.raises(ValueError, match="init_jitter"):
             tsvi.chees_warm_start_from_guide(tg, {k: torch.as_tensor(v) for k, v in params.items()}, 6, 0)
+
+
+@pytest.mark.parametrize("name", GUIDES)
+def test_sharded_bank_matches_unsharded(name):
+    """``run_multistart(mesh=)`` (``test_svi_multistart.py``'s mesh case):
+    the bank's draws are made whole, then each of 8 CPU devices steps its
+    2 starts. The split bank equals the unsplit one bit for bit: the same
+    winner, ELBOs, parameters and losses (JAX holds its split bank within
+    1e-5)."""
+    from dynode_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(("start",), devices=[torch.device("cpu", i) for i in range(8)])
+    svi = tsvi.SVI(t_model, getattr(tsvi, name)(t_model), tsvi.Adam(0.05))
+    kw = dict(num_steps=20, num_starts=16, init_jitter=2.0, obs=torch.as_tensor(OBS))
+    a = svi.run_multistart(torch.Generator().manual_seed(2), **kw)
+    b = svi.run_multistart(torch.Generator().manual_seed(2), mesh=mesh, **kw)
+    assert int(a.best_idx) == int(b.best_idx)
+    assert torch.equal(a.final_elbos, b.final_elbos) and torch.equal(a.all_losses, b.all_losses)
+    for k in a.all_params:
+        assert torch.equal(a.all_params[k], b.all_params[k]), k

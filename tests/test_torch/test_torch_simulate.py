@@ -253,14 +253,15 @@ def test_ensemble_rhs_param_axes_match_jax(multistrain):
 
 
 def test_simulate_ensemble_arguments(multistrain):
-    """An unknown layout raises ``ValueError``, a mesh ``NotImplementedError``
-    (multi-GPU is not ported), a numpy state ``TypeError``; the params type
-    check survives ``ensemble_rhs``."""
+    """An unknown layout raises ``ValueError``, a mesh that is not the
+    port's ``Mesh`` ``TypeError`` (the split itself is held by
+    ``test_torch_parallel.py``), a numpy state ``TypeError``; the params
+    type check survives ``ensemble_rhs``."""
     _, _, _, _, ty0, tbatch = multistrain
     sp = SolverParams(constant_step_size=0.5)
     with pytest.raises(ValueError, match="unknown ensemble layout"):
         simulate_ensemble(tms.multistrain_ode, 5, ty0, tbatch, sp, layout="column_major")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         simulate_ensemble(tms.multistrain_ode, 5, ty0, tbatch, sp, mesh=object())
     with pytest.raises(TypeError):
         simulate_ensemble(tms.multistrain_ode, 5, [y.numpy() for y in ty0], tbatch, sp)
