@@ -6,7 +6,8 @@
 Run from the root of a checkout on a machine with one CUDA card of compute
 capability 9.0. It builds the six kernels of the scenario-ensemble and SEIP
 paths from the sources in the checkout (nvcc into ``build/dynode_tpu_torch/``, one
-compile per CUDA source, all started together; Triton's JIT), then:
+compile per CUDA source, all started together, beside phase 18's shape
+builds; Triton's JIT), then:
 
 1. checks the card and prints ``nvidia-smi``'s name and power limit;
 2. holds the two constant-step kernels against their plain PyTorch versions
@@ -150,7 +151,8 @@ compile per CUDA source, all started together; Triton's JIT), then:
     1e-9); the multi-strain model at its published widths through
     ``simulate_ensemble`` of one member against Tsit5 (2e-5); a gradient
     through TRBDF2 against central differences; (b) 4,096 members of the
-    stiff SEIRS in float32, batch-leading: every result 0, 16 members held
+    stiff SEIRS in float32 over ``STIFF_ENSEMBLE_DAYS``, batch-leading:
+    every result 0, 16 members held
     to single-member solves (1e-5, equal steps), wall, steps and the
     device's idle share; (c) the four split kernel entries (#1, #3, #4,
     #5) at ``obs_max``, ``adaptive_obs``, ``seip_c`` and
@@ -161,7 +163,33 @@ compile per CUDA source, all started together; Triton's JIT), then:
     (b)'s ensemble, ``MCMC(ChEES(...), mesh=)`` at 1,024 chains (the split
     potential and gradient against the unsplit graph at the initial and
     final positions), ``SVI.run_multistart(mesh=)`` at 1,024 starts
-    against the unsplit bank. Phase 17 takes ``MESH_BUDGET_S`` or less.
+    against the unsplit bank. Phase 17 takes ``MESH_BUDGET_S`` or less;
+18. runs the kernels' other shapes, driven from the port's configs, on
+    shape builds (``ops/_build.py``: a unit per kernel family and shape,
+    compiled at first use) whose nvcc round starts beside the library's at
+    the top of the script and is printed on its own: (a) kernels #4 and #5
+    at ``seip_config()``'s default, (A, J, K, M, L) = (4, 4, 3, 4, 2) with
+    no seasonal vaccination, and at a second shape, (2, 2, 3, 3, 1) with
+    seasonal vaccination (``seip_shape_config``), through
+    ``seip_ensemble_solve`` (RK4, dt = 0.5, C in float32) and
+    ``seip_ensemble_solve_adaptive`` (BS3, C in bf16, packed) at
+    ``SEIP_WIDE`` members over 200 days: finite, no exhausted interval,
+    launches; on the first ``SHAPE_CHECK`` members over the first
+    ``SHAPE_CHECK_DAYS`` days every compartment against the plain versions
+    (RK4 within 1e-5, BS3 with every block's decisions equal), the main
+    path's saves there bit for bit, the time table bit for bit, mass per
+    age, BS3 against RK4 at dt = 0.05; (b)
+    kernels #2 and #6 at four ages and three strains from
+    ``multistrain_config`` (``multistrain_4x3_config``) at 9,984 members:
+    finite, mass per age, padding rows zero, the first ``SHAPE_CHECK``
+    members' first ``SHAPE_CHECK_DAYS`` days against the plain versions;
+    (c) ``seip_ensemble_solve_sharded``
+    at (a)'s default shape and the adaptive lane-major
+    ``simulate_ensemble(mesh=)`` at 9,984 members, each over one card
+    listed twice and bit for bit with its unsplit call. For each new
+    instantiation it prints the kernel's time (CUDA events), bound, share
+    of the bound, launches, registers and spills. Phase 18 takes
+    ``SHAPES_BUDGET_S`` or less, its nvcc round apart.
 
 The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -177,6 +205,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -231,7 +260,7 @@ NUTS_REFERENCE = {"stuck": 0.36767578125, "diverging": 0.443115234375, "chains":
 TOL_SHARE_SE = 5.0  # phase 15 (c): those shares on the card within 5 binomial SE of JAX's
 INFER_BUDGET_S = 180.0  # phase 15's time on the card
 TOL_DRIFT = 0.05  # posterior-mean drift from FIT_TRUE_SCALES (bench_nuts.py's oneshot_ok gate)
-CHECK_DAYS = 20  # phase 15 (d): card against CPU transitions, 4 chains
+CHECK_DAYS = 10  # phase 15 (d): card against CPU transitions, 4 chains (its CPU side is eager: few days hold the budget)
 CHECK_WARMUP = 20  # and a NUTS warmup there: the shortest with a metric window (infer.hmc.build_warmup_schedule)
 CHECK_WARMUP_DAYS = 4  # over this many days: its CPU side, eager, grows with them and holds phase 15's budget
 TOL_CARD_CPU = 1e-10  # that check: max |d| / max |cpu|, float64
@@ -268,6 +297,8 @@ MS_STIFF = ((1e-7, 1e-9), (1e-9, 1e-11), 1024)  # TRBDF2, Tsit5 tolerances, TRBD
 TOL_MS_STIFF = 2e-5  # max |d| / max |ref| per compartment
 GRAD_DAYS = 30  # the gradient's horizon through TRBDF2, at a constant dt = DT (central differences see the same grid)
 STIFF_ENSEMBLE, STIFF_PICK = 4096, 16  # bench_nuts.py's chain width; members held to single-member solves
+STIFF_ENSEMBLE_DAYS = 30  # (b) and its split in (d): cut from STIFF_DAYS to hold phase 17's budget on slower hosts
+MS_STIFF_DAYS = 100  # (a)'s multi-strain TRBDF2 solve: cut from DAYS for the same reason
 TOL_STIFF_MEMBER = 1e-5
 RAGGED_ADAPTIVE = 2 * 32800  # 32,800 members a shard: not a multiple of block_b 64
 TOL_RAGGED = TOL_BF16  # a ragged split of the adaptive kernel against the unsplit one, bf16 c-row saves (the main
@@ -277,6 +308,61 @@ TOL_MESH_POT = 1e-6  # split potential and gradient against the unsplit: max |d|
 MESH_SVI = (1024, 1, 1)  # starts, steps, final particles (cut to phase 17's budget)
 TOL_MESH_SVI = 1e-10
 MESH_BUDGET_S = 180.0  # phase 17's time on the card
+# phase 18: the kernels' other shapes, from their configs
+MS_AGES = ("age_0_17", "age_18_49", "age_50_64", "age_65_plus")  # multistrain_config: ages 0-17, 18-49, 50-64, 65+
+MS_DEMOGRAPHICS = (0.25, 0.35, 0.25, 0.15)  # the SEIP model's AGE_DEMOGRAPHICS; contact: the config's default
+SHAPE_CHECK = 1024  # members held against the plain versions (the first 1,024: 256 BS3 blocks of 4)
+SHAPE_CHECK_DAYS = 50  # over the first 50 days of the main path's saves (the plain versions are host-bound)
+SHAPES_BUDGET_S = 180.0  # phase 18's time on the card, its nvcc round apart
+SEIP_SHAPES = {"default": (4, 4, 3, 4, 2, 0), "second": (2, 2, 3, 3, 1, 1)}  # (A, J, K, M, L, seasonal) of (a)
+MS_SHAPE = (4, 3)  # (b)
+LANE_ADAPTIVE = dict(steps_per_save=3)  # (c): Tsit5 at the default rtol 1e-5, atol 1e-6 takes 1-2 steps a day
+
+
+def shape_units() -> list:
+    """The shape builds phase 18 runs: #2 and #6 at ``MS_SHAPE``, the
+    general RK4 and BS3 kernels at each of ``SEIP_SHAPES``."""
+    return ([(kernel, MS_SHAPE) for kernel in ("multistrain_tsit5", "multistrain_tsit5_2d")]
+            + [(family, shape) for shape in SEIP_SHAPES.values() for family in ("seip_rk4", "seip_bs3")])
+
+
+def seip_shape_config(models, strain, name: str):
+    """A SEIP configuration of phase 18, built by ``models.seip_config`` (the
+    port's ``dynode_tpu_torch.models.seip``, or the JAX package's in the CPU
+    tests; ``strain`` the matching ``config.Strain``):
+
+    - ``"default"``: ``seip_config()`` as it is: (A, J, K, M, L) = (4, 4, 3,
+      4, 2), no seasonal vaccination;
+    - ``"second"``: two ages (0-17, 18+; 60% and 40%), one strain (R0 2.2),
+      one vaccination, three waning stages (70 and 110 days, then none;
+      protection 1, 0.7, 0.4), seasonal vaccination: (2, 2, 3, 3, 1);
+    - ``"three"``: the default with a third strain (R0 3.5, introduced on
+      day 120): (4, 8, 3, 4, 3) (the CPU and card tests).
+    """
+    def alpha(n_dose):
+        return strain(strain_name="alpha", r0=2.2, infectious_period=7.0, exposed_to_infectious=3.6,
+                      vaccine_efficacy={k: min(0.35 * k, 0.8) for k in range(n_dose)})
+
+    if name == "default":
+        return models.seip_config()
+    if name == "second":
+        return models.seip_config(
+            strains=[alpha(3)], n_age=2, max_vaccinations=1, seasonal_vaccination=True,
+            waning_times=(70.0, 110.0, math.inf), waning_protections=(1.0, 0.7, 0.4), age_edges=(0, 18, 99),
+            age_demographics=(0.6, 0.4))
+    if name == "three":
+        more = [strain(strain_name=n, r0=r0, infectious_period=7.0, exposed_to_infectious=3.6,
+                       vaccine_efficacy={k: min(0.30 * k, 0.7) for k in range(3)}, is_introduced=True,
+                       introduction_time=day, introduction_percentage=0.02, introduction_scale=5.0)
+                for n, r0, day in (("delta", 3.0, 60.0), ("omicron", 3.5, 120.0))]
+        return models.seip_config(strains=[alpha(3), *more])
+    raise ValueError(f"unknown SEIP shape {name!r}")
+
+
+def multistrain_4x3_config(models):
+    """``multistrain_config`` with four ages (``MS_AGES``, ``MS_DEMOGRAPHICS``,
+    the config's default contact matrix) and its three default strains."""
+    return models.multistrain_config(age_names=MS_AGES, age_demographics=MS_DEMOGRAPHICS)
 
 
 def _nonzero(row) -> int:
@@ -352,6 +438,84 @@ def count_ops(fn, exclude=frozenset()) -> int:
     with Counter():
         fn()
     return Counter.n
+
+
+def seip_work(cpu_p, cpu_y, seip_kw) -> tuple:
+    """Work of the SEIP kernels at the shape of ``cpu_p`` (CPU parameters and
+    state), counted from the plain versions' operations at one and at two
+    members: the difference is a member's work, the rest is shared by the
+    members that share a time (the time scalars and products of them):
+    every member in RK4, whose table kernel computes them once per stage
+    time, a lockstep block in BS3. Returns ``(rhs_m, rhs_s, step_m, step_s,
+    attempt_m, attempt_s)``: an RHS, an RK4 step and a BS3 attempt, per
+    member and shared."""
+    import torch
+
+    from dynode_tpu_torch.models import seip as seip_model
+    from dynode_tpu_torch.ops import seip as tsp
+
+    def by_member(run, exclude=frozenset()):
+        """(operations per member, operations shared) of ``run(b)`` on b members."""
+        one, two = count_ops(lambda: run(1), exclude), count_ops(lambda: run(2), exclude)
+        return two - one, 2 * one - two
+
+    step_m, step_s = by_member(lambda b: tsp.seip_solve_reference(
+        cpu_y, cpu_p, torch.ones(b), duration=DT, dt=DT, save_every=DT))
+    cpu_consts = tsp._Consts(tsp.seip_static_params(cpu_p), torch.float32, torch.device("cpu"))
+    n_strains = cpu_consts.dims[-1]
+
+    def one_rhs(b):
+        return tsp.seip_kernel_rhs(cpu_consts, seip_model.seip_ensemble_state(cpu_y, b),
+                                   torch.zeros(1), torch.ones(n_strains, b))
+
+    rhs_m, rhs_s = by_member(one_rhs)
+    probe = {}
+
+    def one_day(b):  # identical members: one block takes the decisions of one member
+        _, probe["s"] = tsp.seip_solve_adaptive_reference(cpu_y, cpu_p, torch.ones(b), duration=2.0, **{
+            k: v for k, v in seip_kw.items() if k != "duration"})
+
+    # The plain version keeps or drops a whole attempt with selects over the
+    # state (y, k, the NaN saves); the kernel branches on the block's decision
+    # instead, so outside the RHS those selects are not work. It also gives
+    # each member its own time, so its RHS calls count their time scalars per
+    # member: those come off, and the block's three stage times count instead.
+    no_select = {"where"}
+    day_m, day_s = by_member(one_day, exclude=no_select)
+    arith_m, arith_s = by_member(one_rhs, exclude=no_select)
+    ps = probe["s"]
+    a1, r1 = int(ps["n_accepted"][0] + ps["n_rejected"][0]), int(ps["n_rejected"][0])
+    attempt_m = (day_m - (arith_m + arith_s) * (3 * a1 + r1 + 1)) / a1 + 3 * rhs_m
+    attempt_s = day_s / a1 + 3 * rhs_s
+    return rhs_m, rhs_s, step_m, step_s, attempt_m, attempt_s
+
+
+def seip_bs3_flops(work, stats, batch: int, block_b: int) -> int:
+    """Operations of a BS3 run from its per-block attempts and rejections
+    (``work`` from :func:`seip_work`): per member each attempt and one RHS
+    after each rejection and at the start, plus the block's shared work."""
+    import torch
+
+    rhs_m, rhs_s, _, _, attempt_m, attempt_s = work
+    att = (stats["n_accepted"] + stats["n_rejected"]).long().cpu()
+    rej = stats["n_rejected"].long().cpu()
+    members = torch.full_like(att, block_b)
+    members[-1] = batch - block_b * (len(att) - 1)
+    return int((members * (att * attempt_m + (rej + 1) * rhs_m) + att * attempt_s + (rej + 1) * rhs_s).sum())
+
+
+def event_ms(fn, n=5) -> float:
+    """Device time of one launch: CUDA events around n launches."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 class SmokeFailure(RuntimeError):
@@ -1468,16 +1632,16 @@ def mesh_phase(dev, smi: str, fit, k) -> dict:
     y_ms = model.multistrain_initial_state(dtype=f64, device=dev)
     p1 = torch.utils._pytree.tree_map(lambda x: x[None].clone(), p_ms)
     t = time.perf_counter()
-    ms_sol = simulate_ensemble(model.multistrain_ode, int(DAYS), y_ms, p1, SolverParams(
+    ms_sol = simulate_ensemble(model.multistrain_ode, MS_STIFF_DAYS, y_ms, p1, SolverParams(
         solver_method=TRBDF2(), ode_solver_rel_tolerance=ms_tr[0], ode_solver_abs_tolerance=ms_tr[1],
         step_budget=ms_budget))
     ms_s = time.perf_counter() - t
-    ms_ref = simulate(model.multistrain_ode, int(DAYS), tuple(x.cpu() for x in y_ms),
+    ms_ref = simulate(model.multistrain_ode, MS_STIFF_DAYS, tuple(x.cpu() for x in y_ms),
                       torch.utils._pytree.tree_map(lambda x: x.cpu(), p_ms),
                       SolverParams(ode_solver_rel_tolerance=ms_ts[0], ode_solver_abs_tolerance=ms_ts[1]))
     ms_err = rel64([x[0] for x in ms_sol.ys], ms_ref.ys)
     print(f"      multi-strain (A, K) = {tuple(p_ms.contact_matrix.shape[:1]) + tuple(p_ms.beta.shape)}, "
-          f"{sum(x.numel() for x in y_ms)} rows, {DAYS:.0f} days, "
+          f"{sum(x.numel() for x in y_ms)} rows, {MS_STIFF_DAYS} days, "
           f"TRBDF2 rtol {ms_tr[0]:g} atol {ms_tr[1]:g}: result {int(ms_sol.result[0])}, steps {steps(ms_sol)}, "
           f"{ms_s:.2f} s; vs Tsit5 rtol {ms_ts[0]:g} atol {ms_ts[1]:g} (CPU): max rel {ms_err:.3e} (tol "
           f"{TOL_MS_STIFF:.0e})")
@@ -1511,7 +1675,7 @@ def mesh_phase(dev, smi: str, fit, k) -> dict:
                         step_budget=STIFF_BUDGET)
 
     def ensemble():
-        return simulate_ensemble(ode, STIFF_DAYS, y32, p32, sp32)
+        return simulate_ensemble(ode, STIFF_ENSEMBLE_DAYS, y32, p32, sp32)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -1535,7 +1699,7 @@ def mesh_phase(dev, smi: str, fit, k) -> dict:
     t = time.perf_counter()
     for i in pick:
         _, p_i = stiff_inputs(torch.float32, dev, beta=betas[i:i + 1])
-        one = simulate_ensemble(ode, STIFF_DAYS, y32, p_i, sp32)
+        one = simulate_ensemble(ode, STIFF_ENSEMBLE_DAYS, y32, p_i, sp32)
         member_err = max(member_err, rel64([x[0] for x in one.ys], [x[i] for x in ens.ys]))
         same_steps &= all(int(one.stats[key][0]) == int(ens.stats[key][i]) for key in ("num_accepted", "num_rejected"))
     single_s = (time.perf_counter() - t) / STIFF_PICK
@@ -1543,7 +1707,8 @@ def mesh_phase(dev, smi: str, fit, k) -> dict:
     busy_s = sum(e.duration_ns() for e in on_card) / 1e9
     idle = f"{1.0 - busy_s / walls[2]:.1%} ({len(on_card)} device operations, busy {busy_s:.3f} s of the traced run's " \
         f"{walls[2]:.2f} s)" if on_card else "not measured (the profiler saw no device time)"
-    print(f"  (b) stiff ensemble: {STIFF_ENSEMBLE} members, beta ~ Uniform(0.2, 0.4), float32, batch_leading, TRBDF2: "
+    print(f"  (b) stiff ensemble: {STIFF_ENSEMBLE} members, {STIFF_ENSEMBLE_DAYS} days, beta ~ Uniform(0.2, 0.4), "
+          f"float32, batch_leading, TRBDF2: "
           f"wall {ens_s:.2f} s (median of 3; host clock), steps per member min / median / max "
           f"{int(n_steps.min())} / {int(n_steps.median())} / {int(n_steps.max())}, every result 0; device idle share "
           f"{idle}; {STIFF_PICK} members against single-member solves ({single_s:.2f} s each): max rel "
@@ -1619,7 +1784,7 @@ def mesh_phase(dev, smi: str, fit, k) -> dict:
          lambda m: simulate_ensemble(model.multistrain_ode, int(DAYS), y0, lane_p, sp_c, layout="lane_major", mesh=m),
          (lane, lane_s)),
         (f"(b)'s stiff ensemble: batch_leading B={STIFF_ENSEMBLE}, TRBDF2 (unsplit: (b))",
-         lambda m: simulate_ensemble(ode, STIFF_DAYS, y32, p32, sp32, mesh=m), (ens, ens_s)),
+         lambda m: simulate_ensemble(ode, STIFF_ENSEMBLE_DAYS, y32, p32, sp32, mesh=m), (ens, ens_s)),
     ):
         whole, whole_s = done
         torch.cuda.synchronize()
@@ -1709,6 +1874,264 @@ def mesh_phase(dev, smi: str, fit, k) -> dict:
     print(f"  phase 17: {phase_s:.1f} s (gate {MESH_BUDGET_S:.0f} s); split entries' launches {mesh_launches}")
     check(phase_s <= MESH_BUDGET_S, f"phase 17 took {phase_s:.1f} s, over its {MESH_BUDGET_S:.0f} s")
     return mesh_launches
+
+
+def shapes_phase(dev, smi: str, build_wall) -> dict:
+    """Phase 18: the kernels' other shapes, from their configs (module
+    docstring). ``build_wall()`` waits for the shape builds started with the
+    library's and gives their nvcc round's wall seconds. Returns, for
+    kernels #2, #4, #5 and #6, their launches on this path and each new
+    shape's time, bound and compile facts."""
+    import numpy as np
+    import torch
+
+    from dynode_tpu_torch import SolverParams, simulate_ensemble
+    from dynode_tpu_torch.config import Strain
+    from dynode_tpu_torch.models import multistrain as ms_model
+    from dynode_tpu_torch.models import seip as seip_model
+    from dynode_tpu_torch.ode.solvers import METHODS
+    from dynode_tpu_torch.ops import _build
+    from dynode_tpu_torch.ops import multistrain as ms
+    from dynode_tpu_torch.ops import seip as tsp
+    from dynode_tpu_torch.ops import sharded
+    from dynode_tpu_torch.parallel import create_mesh
+
+    wall = build_wall()
+    print(f"phase 18: the kernels' other shapes from their configs [{smi}]; shape builds {shape_units()}: "
+          f"nvcc round {wall:.1f} s wall, beside the library's")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 18)
+    f32, n_days = torch.float32, int(DAYS) + 1
+    n_steps = int(round(DAYS / DT))
+    out = {name: {"shape_path_launches": 0, "shapes": []} for name in
+           ("multistrain_tsit5", "seip_rk4", "seip_bs3", "multistrain_tsit5_2d")}
+    launchers = {"multistrain_tsit5": ms.launch_multistrain_tsit5, "multistrain_tsit5_2d": ms.launch_multistrain_tsit5_2d,
+                 "seip_rk4": tsp.launch_seip_rk4, "seip_bs3": tsp.launch_seip_bs3}
+
+    def launched(run):
+        """``run()`` with every launch count set to 0 before it; each kernel's
+        launches in it are added to its row."""
+        for fn in launchers.values():
+            fn.launches = 0
+        tsp.launch_seip_time_table.launches = 0
+        torch.cuda.synchronize()
+        result = run()
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in launchers.items()}
+        for name, n in counts.items():
+            out[name]["shape_path_launches"] += n
+        return result, counts, tsp.launch_seip_time_table.launches
+
+    def facts(family, shape, kernel):
+        """Registers and spill bytes of the shape build's ``kernel``."""
+        res = _build.ptxas_resources(_build.shape_build_log(family, shape))
+        return next((v for k, v in res.items() if kernel in k), {})
+
+    def record(name, shape, batch, event, flops, nbytes, launches, compiled, plain_ms, what):
+        bound_ms, bound_by = max((flops / PEAK_F32_FLOPS * 1e3, "operations"), (nbytes / PEAK_BYTES * 1e3, "bytes"))
+        row = {"shape": list(shape), "batch": batch, "ms": event, "bound_ms": bound_ms, "bound_by": bound_by,
+               "share": bound_ms / event, "launches": launches, "plain_ms": plain_ms, "plain_batch": SHAPE_CHECK,
+               "plain_days": SHAPE_CHECK_DAYS, "library_ms": None, **compiled}
+        out[name]["shapes"].append(row)
+        print(f"  {name} {what}, B={batch}: kernel {event:.3f} ms (CUDA events); {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB -> bound {bound_ms:.4f} ms by {bound_by} ({bound_ms / event:.1%} of it); "
+              f"{launches} launch(es) on the path; registers {compiled.get('registers')}, spill stores / loads "
+              f"{compiled.get('spill_stores')} / {compiled.get('spill_loads')} B; plain {plain_ms:.1f} ms on "
+              f"{SHAPE_CHECK} members over {SHAPE_CHECK_DAYS} days [{smi}]")
+
+    def seip_mass(outs) -> float:
+        living = sum(x.float().sum(dim=(2, 3, 4)) for x in outs[:3])  # (T, A, B)
+        return float(((living - living[0]).abs() / living[0]).max())
+
+    # ---- (a) SEIP at seip_config()'s default and at a second shape --------------
+    seip_kw = dict(duration=DAYS, rtol=SEIP_RTOL, atol=SEIP_ATOL)
+    unsplit = {}
+    for name, shape in SEIP_SHAPES.items():
+        cfg = seip_shape_config(seip_model, Strain, name)
+        sp, sy = seip_model.seip_odeparams(cfg, device=dev), seip_model.seip_initial_state(cfg, device=dev)
+        P = tsp.seip_static_params(sp)
+        check((*P.dims, int(P.seasonal)) == shape, f"seip_config {name}: shape {(*P.dims, P.seasonal)}")
+        L, cells = P.dims[-1], int(np.prod(P.dims[:3]))
+        values = cells * (P.dims[3] + 3 * L)  # floats of a member's state
+        scales = torch.as_tensor(rng.uniform(0.85, 1.2, (L, SEIP_WIDE)), dtype=f32, device=dev)
+        what = f"{name} {shape}"
+        ((c_rk4,), ((c_bs3,), st)), counts, table_n = launched(lambda: (
+            tsp.seip_ensemble_solve(sy, sp, scales, duration=DAYS, dt=DT, save=(3,)),
+            tsp.seip_ensemble_solve_adaptive(sy, sp, scales, save=(3,), save_dtype=torch.bfloat16, packed=True,
+                                             **seip_kw)))
+        check(counts["seip_rk4"] > 0 and counts["seip_bs3"] > 0 and table_n > 0,
+              f"SEIP {what}: a kernel of the path did not launch: {counts}, table {table_n}")
+        check(tuple(c_rk4.shape) == (n_days, *P.dims[:3], L, SEIP_WIDE), f"SEIP {what}: C {tuple(c_rk4.shape)}")
+        check(bool(torch.isfinite(c_rk4).all()) and bool(torch.isfinite(c_bs3).all()), f"SEIP {what}: non-finite")
+        n_bad = int(st["exhausted_intervals"].sum())
+        print(f"  (a) SEIP {what} from seip_config, B={SEIP_WIDE}, {DAYS:.0f} days: RK4 dt={DT} C f32, BS3 C bf16 "
+              f"packed ({int((st['n_accepted'] + st['n_rejected']).sum())} attempts in {st['n_accepted'].shape[0]} "
+              f"blocks, {n_bad} exhausted); launches {counts}, time table {table_n}")
+        check(n_bad == 0, f"SEIP {what}: {n_bad} exhausted intervals")
+        if name == "default":
+            unsplit = dict(sp=sp, sy=sy, scales=scales, c=c_rk4)
+        # against the plain versions on the first SHAPE_CHECK members over SHAPE_CHECK_DAYS: every
+        # compartment in float32, and the main path's first saves
+        sub = scales[:, :SHAPE_CHECK].contiguous()
+        check_kw = dict(duration=float(SHAPE_CHECK_DAYS), dt=DT)
+        n_check = SHAPE_CHECK_DAYS + 1
+        p_rk4, want = wall_ms(lambda: tsp.seip_solve_reference(sy, sp, sub, dtype=f32, **check_kw))
+        got = tsp.seip_ensemble_solve(sy, sp, sub, **check_kw)
+        errs = [rel_err(g, w)[1] for g, w in zip(got, want)]
+        same = torch.equal(got[3], c_rk4[:n_check, ..., :SHAPE_CHECK])
+        drift = seip_mass(got)
+        print(f"      RK4 vs plain, {SHAPE_CHECK} members, {SHAPE_CHECK_DAYS} days, S E I C f32: max rel {max(errs):.3e} "
+              f"(tol {TOL_F32:.0e}); their C equal to the main path's bit for bit: {same}; per-age mass drift "
+              f"{drift:.3e}")
+        check(max(errs) <= TOL_F32 and same and drift <= TOL_MASS, f"SEIP RK4 {what} against its plain version")
+        P64 = tsp.seip_static_params(sp)
+        table = tsp.launch_seip_time_table(P64, dt=DT, n_steps=n_steps, device=dev)
+        check(torch.equal(table, tsp.seip_time_table_reference(P64, dt=DT, n_steps=n_steps, device=dev)),
+              f"SEIP {what}: the time table differs from its plain version")
+        plain_stats = {}
+
+        bs3_kw = dict(seip_kw, duration=float(SHAPE_CHECK_DAYS))
+
+        def bs3_plain():
+            outs, plain_stats["s"] = tsp.seip_solve_adaptive_reference(
+                sy, sp, sub, block_b=tsp.SEIP_ADAPTIVE_BLOCK, dtype=f32, **bs3_kw)
+            return outs
+
+        p_bs3, want = wall_ms(bs3_plain)
+        wst = plain_stats["s"]
+        got, gst = tsp.seip_ensemble_solve_adaptive(sy, sp, sub, **bs3_kw)
+        nb = gst["n_accepted"].shape[0]
+        same_st = all(torch.equal(gst[k], wst[k]) for k in wst)
+        same_main = torch.equal(tsp.unpack_members(c_bs3)[:n_check, ..., :SHAPE_CHECK], got[3].to(torch.bfloat16))
+        errs = [rel_err(g, w)[1] for g, w in zip(got, want)]
+        drift = seip_mass(got)
+        print(f"      BS3 vs plain, {SHAPE_CHECK} members ({nb} blocks), {SHAPE_CHECK_DAYS} days, S E I C f32: every "
+              f"block's decisions equal: {same_st}; max rel {max(errs):.3e} (tol {TOL_F32:.0e}); their C equal to the "
+              f"main path's (bf16) bit for bit: {same_main}; per-age mass drift {drift:.3e}; time table bit for bit")
+        check(same_st and same_main and max(errs) <= TOL_F32 and drift <= TOL_MASS,
+              f"SEIP BS3 {what} against its plain version")
+        (c_ref,) = tsp.seip_ensemble_solve(sy, sp, sub, duration=float(SHAPE_CHECK_DAYS), dt=0.05, save=(3,))
+        acc = rel_err(got[3], c_ref)[1]
+        print(f"      BS3 vs RK4 at dt = 0.05, {SHAPE_CHECK} members, {SHAPE_CHECK_DAYS} days, C: max rel {acc:.3e} "
+              f"(tol {TOL_SEIP_ACCURACY:.0e})")
+        check(acc < TOL_SEIP_ACCURACY, f"SEIP {what}: BS3 against RK4 at dt = 0.05: {acc:.3e}")
+        del want, got, c_ref
+        # times and bounds at the main path's width
+        norm = tsp._norm_scales(scales, L, f32, dev)
+        rk4_ms = event_ms(lambda: tsp.launch_seip_rk4(sy, P64, norm, dt=DT, n_steps=n_steps, save_stride=2, save=(3,),
+                                                      save_dtype=f32, packed=False), n=3)
+        bs3_ms = event_ms(lambda: tsp.launch_seip_bs3(
+            sy, P64, norm, n_saves=n_days, save_every=1.0, rtol=SEIP_RTOL, atol=SEIP_ATOL, dt0=1.0 / 8,
+            steps_per_save=8, block_b=tsp.SEIP_ADAPTIVE_BLOCK, save=(3,), save_dtype=torch.bfloat16, packed=True), n=3)
+        cpu_p, cpu_y = seip_model.seip_odeparams(cfg, device="cpu"), seip_model.seip_initial_state(cfg, device="cpu")
+        work = seip_work(cpu_p, cpu_y, seip_kw)
+        inputs = 4 * values + 8 * tsp._host_constants(P64).size + 4 * L * SEIP_WIDE
+        c_floats = cells * L
+        record("seip_rk4", shape, SEIP_WIDE, rk4_ms, n_steps * (SEIP_WIDE * work[2] + work[3]),
+               inputs + 4 * n_days * c_floats * SEIP_WIDE, counts["seip_rk4"],
+               facts("seip_rk4", shape, "seip_rk4_any_kernel"), p_rk4, f"{what}, C f32")
+        record("seip_bs3", shape, SEIP_WIDE, bs3_ms, seip_bs3_flops(work, st, SEIP_WIDE, tsp.SEIP_ADAPTIVE_BLOCK),
+               inputs + 2 * n_days * c_floats * SEIP_WIDE + 12 * st["n_accepted"].shape[0], counts["seip_bs3"],
+               facts("seip_bs3", shape, "seip_bs3_any_kernel"), p_bs3, f"{what}, C bf16 packed")
+        del c_rk4, c_bs3
+
+    # ---- (b) multi-strain at four ages and three strains, from multistrain_config ----
+    A, K = MS_SHAPE
+    cfg = multistrain_4x3_config(ms_model)
+    p, y0 = ms_model.multistrain_odeparams(cfg, device=dev), ms_model.multistrain_initial_state(cfg, device=dev)
+    check(tuple(p.contact_matrix.shape) == (A, A) and p.beta.shape[0] == K, "multistrain_config (4, 3)")
+    beta = p.beta[None, :] * torch.as_tensor(rng.uniform(0.6, 1.6, ENSEMBLE), dtype=f32, device=dev)[:, None]
+    args = (y0, beta, p.sigma, p.gamma, p.omega, p.contact_matrix)
+    kw = dict(batch=ENSEMBLE, duration=DAYS, dt=DT, n_age=A, n_strain=K)
+    (rows, two_d), counts, _ = launched(lambda: (ms.ensemble_solve_tsit5(*args, **kw),
+                                                 ms.ensemble_solve_tsit5_2d(*args, **kw)))
+    check(counts["multistrain_tsit5"] > 0 and counts["multistrain_tsit5_2d"] > 0,
+          f"multi-strain (4, 3): a kernel did not launch: {counts}")
+    D = A + 4 * A * K
+    _, D2 = ms._offsets_2d(A, K)
+    check(tuple(rows.shape) == (n_days, D, ENSEMBLE) and tuple(two_d.shape) == (n_days, D2, ENSEMBLE),
+          "multi-strain (4, 3) saves' shapes")
+    team = ms.pick_team(ENSEMBLE, A)
+    sub_args = (y0, beta[:SHAPE_CHECK], *args[2:])
+    sub_kw = dict(kw, batch=SHAPE_CHECK, duration=float(SHAPE_CHECK_DAYS))
+    for name, saves, unpack in (("multistrain_tsit5", rows, ms.unpack_saves), ("multistrain_tsit5_2d", two_d,
+                                                                              ms.unpack_saves_2d)):
+        check(bool(torch.isfinite(saves).all()), f"{name} (4, 3): non-finite saves")
+        s_, e_, i_, r_, _ = unpack(saves, A, K)
+        mass = s_ + e_.sum(-1) + i_.sum(-1) + r_.sum(-1)
+        drift = float(((mass - mass[0]).abs() / mass[0]).max())
+        if name == "multistrain_tsit5":
+            p_ms_, want = wall_ms(lambda: ms.ensemble_solve_reference(*sub_args, **sub_kw))
+        else:
+            p_ms_, want = wall_ms(lambda: ms._solve_2d_reference(
+                ms.pack_state_2d(y0, SHAPE_CHECK, A, K), ms.pack_rates_2d(*sub_args[1:5], SHAPE_CHECK, A, K),
+                duration=float(SHAPE_CHECK_DAYS), dt=DT, save_every=1.0,
+                contact_tuple=ms._contact_tuple(p.contact_matrix), n_age=A, n_strain=K))
+        err = rel_err(saves[:SHAPE_CHECK_DAYS + 1, :, :SHAPE_CHECK], want)[1]
+        pad_ok = True
+        if name == "multistrain_tsit5_2d":
+            pad = sorted(set(range(D2)) - set(ms._live_rows_2d(A, K)))
+            pad_ok = not bool(saves[:, pad].any())
+        print(f"  (b) {name} {MS_SHAPE} from multistrain_config (ages 0-17 / 18-49 / 50-64 / 65+), B={ENSEMBLE}, Tsit5 "
+              f"dt={DT}, {DAYS:.0f} days, team of {team}: finite, per-age mass drift {drift:.3e} (tol "
+              f"{TOL_MASS:.0e}); first {SHAPE_CHECK} members' first {SHAPE_CHECK_DAYS} days vs plain max rel "
+              f"{err:.3e} (tol {TOL_F32:.0e}); "
+              f"padding rows zero: {pad_ok}")
+        check(drift <= TOL_MASS and err <= TOL_F32 and pad_ok, f"{name} (4, 3) against its plain version")
+        if name == "multistrain_tsit5":
+            y_p, p_p = ms.pack_state(y0, ENSEMBLE, A, K), ms.pack_params(*args[1:5], ENSEMBLE, K)
+            launch, flops = ms.launch_multistrain_tsit5, n_steps * ENSEMBLE * step_flops(METHODS["tsit5"],
+                                                                                       rhs_flops(A, K), D)
+            nbytes = 4 * ENSEMBLE * (D + 4 * K) + 4 * A * A + 4 * n_days * D * ENSEMBLE
+        else:
+            y_p, p_p = ms.pack_state_2d(y0, ENSEMBLE, A, K), ms.pack_rates_2d(*args[1:5], ENSEMBLE, A, K)
+            launch, flops = ms.launch_multistrain_tsit5_2d, n_steps * ENSEMBLE * step_flops_2d(METHODS["tsit5"], A, K)
+            nbytes = 4 * ENSEMBLE * (D2 + p_p.shape[0]) + 4 * A * A + 4 * n_days * D2 * ENSEMBLE
+        k_ms = event_ms(lambda: launch(y_p, p_p, p.contact_matrix, dt=DT, n_steps=n_steps, save_stride=2,
+                                       n_age=A, n_strain=K))
+        compiled = ms.compile_facts(_build.shape_build_log(name, MS_SHAPE), None)
+        record(name, MS_SHAPE, ENSEMBLE, k_ms, flops, nbytes, counts[name],
+               {"team": team, **compiled.get(ms.kernel_name(name, A, K, team), {})}, p_ms_, f"{MS_SHAPE}")
+        del want
+    del rows, two_d
+
+    # ---- (c) a split entry of each new family over one card listed twice -------------
+    mesh = create_mesh(("ensemble",), devices=[dev, dev])
+    u = unsplit
+    (c_split,), counts, _ = launched(lambda: sharded.seip_ensemble_solve_sharded(
+        u["sy"], u["sp"], u["scales"], mesh=mesh, duration=DAYS, dt=DT, save=(3,)))
+    same = torch.equal(c_split, u["c"])
+    print(f"  (c) seip_ensemble_solve_sharded at {SEIP_SHAPES['default']}, B={SEIP_WIDE}, over one card twice: "
+          f"{counts['seip_rk4']} launches, bit for bit with the unsplit call: {same}")
+    check(same and counts["seip_rk4"] == 2, "the split SEIP entry at the default shape differs")
+    del c_split, unsplit, u
+    base, y0 = ms_model.multistrain_default_params(device=dev), ms_model.multistrain_initial_state(device=dev)
+    lane_scales = torch.as_tensor(rng.uniform(0.6, 1.6, ENSEMBLE), dtype=f32, device=dev)
+    lane_p = torch.utils._pytree.tree_map(lambda leaf: leaf.expand((ENSEMBLE,) + leaf.shape), base).replace(
+        beta=base.beta[None, :] * lane_scales[:, None])
+    sp_a = SolverParams(**LANE_ADAPTIVE)
+    walls = {}
+    for where, m in (("unsplit", None), ("split", mesh)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sol = simulate_ensemble(ms_model.multistrain_ode, int(DAYS), y0, lane_p, sp_a, layout="lane_major", mesh=m)
+        torch.cuda.synchronize()
+        walls[where] = (time.perf_counter() - t, sol)
+    (w_s, whole), (s_s, got) = walls["unsplit"], walls["split"]
+    same = all(torch.equal(a, b) for a, b in zip(got.ys, whole.ys)) and torch.equal(got.result, whole.result)
+    same &= all(torch.equal(got.stats[k], whole.stats[k]) for k in whole.stats)
+    print(f"  (c) simulate_ensemble(layout='lane_major', mesh=) adaptive (Tsit5, rtol 1e-5, atol 1e-6, "
+          f"{LANE_ADAPTIVE}), engine_lane_10k's B={ENSEMBLE}, {DAYS:.0f} days: result {int(got.result)}, "
+          f"{int(got.stats['num_accepted'])} accepted / {int(got.stats['num_rejected'])} rejected; bit for bit with "
+          f"the unsplit call: {same}; split {s_s:.2f} s, unsplit {w_s:.2f} s")
+    check(same and int(got.result) == 0, "the split adaptive lane-major ensemble differs from the unsplit one")
+    del walls, whole, got
+
+    phase_s = time.perf_counter() - t_phase
+    print(f"  phase 18: {phase_s:.1f} s (gate {SHAPES_BUDGET_S:.0f} s, the nvcc round apart); launches "
+          f"{ {k: v['shape_path_launches'] for k, v in out.items()} }")
+    check(phase_s <= SHAPES_BUDGET_S, f"phase 18 took {phase_s:.1f} s, over its {SHAPES_BUDGET_S:.0f} s")
+    return out
 
 
 def median_tree_ms(fn):
@@ -1804,6 +2227,9 @@ def main() -> int:
     print(f"device: {kind}, capability {torch.cuda.get_device_capability(dev)}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    # phase 18's shape builds compile beside the library's, one nvcc each
+    shape_builds = ThreadPoolExecutor(max_workers=1)
+    shape_wall = shape_builds.submit(_build.prebuild, shape_units())
     t = time.perf_counter()
     _build.load_library()
     print(f"build: nvcc {time.perf_counter() - t:.1f} s (0 when cached)")
@@ -2000,17 +2426,6 @@ def main() -> int:
     del ends, s, e, i, r, c, mass
 
     # ---- 5. times, and the main path against the plain version ---------------
-    def event_ms(fn, n=5) -> float:
-        """Device time of one launch: CUDA events around n launches."""
-        fn()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / n
-
     print(f"phase 5: times, entry points median of 3 after a warm-up, plain versions one call, on {smi}")
     ms_args = (y0, beta, base.sigma, base.gamma, base.omega, base.contact_matrix)
     ms_kw = dict(batch=ENSEMBLE, duration=DAYS, dt=DT)
@@ -2485,58 +2900,15 @@ def main() -> int:
               f"plain {p_ms_:.1f} ms ({b / p_ms_ * 1e3:,.0f} traj/s) [{smi}]")
     print(f"  seip_bs3 B={SEIP_WIDE}, C f32: plain {p_bs3_c:.1f} ms [{smi}]")
 
-    # work of the SEIP kernels, counted from the plain versions' operations at
-    # one and at two members: the difference is a member's work, the rest is
-    # shared by the members that share a time (the time scalars and products of
-    # them): every member in RK4, whose table kernel computes them once per
-    # stage time, a lockstep block in BS3
     cpu_p = seip_model.seip_default_params(True, device="cpu")
     cpu_y = seip_model.seip_initial_state(True, device="cpu")
-
-    def by_member(run, exclude=frozenset()):
-        """(operations per member, operations shared) of ``run(b)`` on b members."""
-        one, two = count_ops(lambda: run(1), exclude), count_ops(lambda: run(2), exclude)
-        return two - one, 2 * one - two
-
-    step_m, step_s = by_member(lambda b: tsp.seip_solve_reference(
-        cpu_y, cpu_p, torch.ones(b), duration=DT, dt=DT, save_every=DT))
-    cpu_consts = tsp._Consts(tsp.seip_static_params(cpu_p), torch.float32, torch.device("cpu"))
-
-    def one_rhs(b):
-        return tsp.seip_kernel_rhs(cpu_consts, seip_model.seip_ensemble_state(cpu_y, b),
-                                   torch.zeros(1), torch.ones(2, b))
-
-    rhs_m, rhs_s = by_member(one_rhs)
-    probe = {}
-
-    def one_day(b):  # identical members: one block takes the decisions of one member
-        _, probe["s"] = tsp.seip_solve_adaptive_reference(cpu_y, cpu_p, torch.ones(b), duration=2.0, **{
-            k: v for k, v in seip_kw.items() if k != "duration"})
-
-    # The plain version keeps or drops a whole attempt with selects over the
-    # state (y, k, the NaN saves); the kernel branches on the block's decision
-    # instead, so outside the RHS those selects are not work. It also gives
-    # each member its own time, so its RHS calls count their time scalars per
-    # member: those come off, and the block's three stage times count instead.
-    no_select = {"where"}
-    day_m, day_s = by_member(one_day, exclude=no_select)
-    arith_m, arith_s = by_member(one_rhs, exclude=no_select)
-    ps = probe["s"]
-    a1, r1 = int(ps["n_accepted"][0] + ps["n_rejected"][0]), int(ps["n_rejected"][0])
-    attempt_m = (day_m - (arith_m + arith_s) * (3 * a1 + r1 + 1)) / a1 + 3 * rhs_m
-    attempt_s = day_s / a1 + 3 * rhs_s
+    rhs_m, rhs_s, step_m, step_s, attempt_m, attempt_s = seip_work(cpu_p, cpu_y, seip_kw)
     print(f"  SEIP work counted from the plain versions, per member (+ shared by a time's members): "
           f"RHS {rhs_m:,} (+{rhs_s:,}) operations, RK4 step {step_m:,} (+{step_s:,}), BS3 attempt "
           f"{attempt_m:,.0f} (+{attempt_s:,.0f} per block; plus one RHS after each rejection; no "
           f"selects over the state)")
-    stats_w = wide_stats
-    att_w = (stats_w["n_accepted"] + stats_w["n_rejected"]).long().cpu()
-    rej_w = stats_w["n_rejected"].long().cpu()
-    bb = tsp.SEIP_ADAPTIVE_BLOCK
-    members = torch.full_like(att_w, bb)
-    members[-1] = 2 * SEIP_WIDE - bb * (len(att_w) - 1)
-    bs3_flops = int((members * (att_w * attempt_m + (rej_w + 1) * rhs_m)
-                     + att_w * attempt_s + (rej_w + 1) * rhs_s).sum())
+    work_seip = (rhs_m, rhs_s, step_m, step_s, attempt_m, attempt_s)
+    bs3_flops = seip_bs3_flops(work_seip, wide_stats, 2 * SEIP_WIDE, tsp.SEIP_ADAPTIVE_BLOCK)
     seip_in = 4 * 640 + 8 * 295  # shared y0 and the float64 constants
     rk4_flops = n_steps_seip * (SEIP_WIDE * step_m + step_s)
     full4_bytes = seip_in + 4 * 2 * SEIP_WIDE + 2 * n_days * 640 * SEIP_WIDE
@@ -2545,10 +2917,10 @@ def main() -> int:
           f"{full4_bytes / 1e9:.2f} GB of saves and inputs ({full4_bytes / PEAK_BYTES * 1e3:.4f} ms) -> "
           f"bound {full4_bound:.4f} ms; kernel {full4_ms:.3f} ms ({full4_bound / full4_ms:.1%} of the bound) "
           f"[{smi}]")
-    seip_work = {
+    seip_kernel_work = {
         "seip_rk4": (rk4_flops, seip_in + 4 * 2 * SEIP_WIDE + 4 * n_days * 128 * SEIP_WIDE),
         "seip_bs3": (bs3_flops, seip_in + 4 * 2 * 2 * SEIP_WIDE + 2 * n_days * 128 * 2 * SEIP_WIDE
-                     + 12 * len(att_w)),
+                     + 12 * wide_stats["n_accepted"].shape[0]),
     }
 
     # ---- 13. the ODE engine and simulate ---------------------------------------
@@ -2568,6 +2940,10 @@ def main() -> int:
         rhs=rhs_ms, y_wide=y_wide, p_wide=p_wide, obs_kw=obs_kw, adaptive_kw=adaptive_kw, sy=sy, sp=sp,
         scales=main_scales, seip_kw=seip_kw, lane=lane))
 
+    # ---- 18. the kernels' other shapes, from their configs -------------------------
+    shape_rows = shapes_phase(dev, smi, shape_wall.result)
+    shape_builds.shutdown()
+
     # ---- the kernels' line: counts of this run's work and the card's bound ---
     obs_attempts = int((obs_stats["n_accepted"] + obs_stats["n_rejected"]).sum())
     obs_bytes = 8 * 2  # a member's save slot: 6 c rows + 2 zero rows, bf16
@@ -2586,7 +2962,7 @@ def main() -> int:
         "multistrain_tsit5_2d": (
             n_steps * ENSEMBLE * step_flops_2d(METHODS["tsit5"], A, K),
             4 * ENSEMBLE * (D2 + 32) + 4 * A * A + 4 * (int(DAYS) + 1) * D2 * ENSEMBLE),
-        **seip_work,
+        **seip_kernel_work,
     }
     print(f"  adaptive B={WIDE}: {obs_attempts} attempts; work counted from the stats")
     check("jax" not in sys.modules, "jax was imported")
@@ -2625,6 +3001,8 @@ def main() -> int:
         kernels[list(meta).index(name)]["forecast_path_launches"] = n
     for name, n in mesh_launches.items():  # phase 17's split entries
         kernels[list(meta).index(name)]["mesh_path_launches"] = n
+    for name, row in shape_rows.items():  # phase 18's other shapes
+        kernels[list(meta).index(name)].update(row)
     kernels[list(meta).index("rk_solve_adaptive")].update(adaptive_facts)
     kernels[list(meta).index("multistrain_tsit5")].update(row_facts)
     kernels[list(meta).index("multistrain_tsit5_2d")].update(facts_2d)

@@ -6,6 +6,7 @@ kernels' team and block widths, and the SEIP kernels' widths, on one H100.
     python3 chip_sweep.py generic      # the adaptive generic kernel's register caps only
     python3 chip_sweep.py multistrain  # the two multi-strain kernels only
     python3 chip_sweep.py seip         # the SEIP part only
+    python3 chip_sweep.py shapes       # the multi-strain shape builds' nvcc times only
 
 Run from the root of a checkout on a machine with one CUDA card of compute
 capability 9.0. It solves the two adaptive main paths of ``chip_smoke.py`` --
@@ -44,6 +45,13 @@ compiled for (rtol 1e-4, atol 1e-3, C saved in the packed layout): B =
 32,768 in float32 and B = 65,536 in bf16, with its statistics. The RK4
 kernel is compiled for one CTA width (``RK4_WIDTH``); to sweep others,
 instantiate them in ``csrc/seip_rk4.cu`` for the run.
+
+``shapes`` builds the two multi-strain kernels' shape builds
+(``ops/_build.py``, one unit a shape and kernel: the library's templates
+instantiated at the shape) one at a time, at (A, K) = ``SHAPE_LADDER``,
+from 52 state rows up to ``ops/multistrain.py::MAX_ROWS``, and prints each
+nvcc's wall time and each instantiation's registers and spills: the cost
+that sets the limit. It is not part of the default run.
 
 It imports no JAX and exits non-zero without a card.
 """
@@ -155,6 +163,8 @@ def main() -> int:
 
     if sys.argv[1:] == ["multistrain"]:
         return multistrain_sweep(dev, smi)
+    if sys.argv[1:] == ["shapes"]:
+        return shapes_sweep(smi)
     if sys.argv[1:] == ["seip"]:
         return seip_sweep(dev, smi)
     if sys.argv[1:] != ["generic"]:
@@ -236,6 +246,28 @@ def multistrain_sweep(dev, smi) -> int:
     for label, f in sorted(facts.items()):
         print(f"{label}: registers {f.get('registers')}, spill stores {f.get('spill_stores')} B, "
               f"loads {f.get('spill_loads')} B; static SASS {f['sass'] or 'not available'}")
+    return 0
+
+
+#: (A, K) of the shape-build ladder: 52, 136, 208, 232 and 245 state rows
+SHAPE_LADDER = ((4, 3), (8, 4), (16, 3), (8, 7), (5, 12))
+
+
+def shapes_sweep(smi) -> int:
+    """nvcc's wall time of each multi-strain shape build of the ladder, one
+    at a time, with its instantiations' registers and spills."""
+    from dynode_tpu_torch.ops import _build
+    from dynode_tpu_torch.ops import multistrain as ms
+
+    for a, k in SHAPE_LADDER:
+        rows = a + 4 * a * k
+        if rows > ms.MAX_ROWS:
+            raise RuntimeError(f"({a}, {k}) has {rows} rows, past MAX_ROWS {ms.MAX_ROWS}")
+        for kernel in ("multistrain_tsit5", "multistrain_tsit5_2d"):
+            wall = _build.prebuild([(kernel, (a, k))])
+            facts = ms.compile_facts(_build.shape_build_log(kernel, (a, k)), None)
+            mine = {name: f for name, f in facts.items() if name.startswith(f"{kernel}_kernel<{a},{k},")}
+            print(f"shape build {kernel} ({a}, {k}), {rows} rows: nvcc {wall:.1f} s (0 when built); {mine} [{smi}]")
     return 0
 
 

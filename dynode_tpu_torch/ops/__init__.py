@@ -6,8 +6,11 @@ the same model on the aligned 2-D layout in another (``csrc/multistrain_tsit5_2d
 ``ensemble_solve_kernel`` and ``ensemble_solve_kernel_adaptive`` do a
 constant-step and an adaptive (lockstep-dt) solve of any rows-RHS in Triton
 kernels (``generic_triton.py``); ``seip_ensemble_solve`` and
-``seip_ensemble_solve_adaptive`` solve the production SEIP ensemble with RK4
-and lockstep BS3(2) in CUDA C++ (``csrc/seip_rk4.cu``, ``csrc/seip_bs3.cu``).
+``seip_ensemble_solve_adaptive`` solve the SEIP ensemble with RK4 and
+lockstep BS3(2) in CUDA C++ (``csrc/seip_rk4.cu``, ``csrc/seip_bs3.cu`` at
+the production shape; ``csrc/shapes/seip_rk4_any.cu``, ``seip_bs3_any.cu`` at
+any other). The library holds the production shapes' instantiations; every
+other shape is built on its own at first use (``_build.shape_library``).
 On CPU tensors each runs its plain PyTorch version; on CUDA tensors it
 launches the kernel or raises. The four ``*_sharded`` entries
 (:mod:`.sharded`) split the members of #1, #3, #4 and #5 over a mesh.

@@ -18,6 +18,21 @@ PyTorch's headers, which keeps a build to seconds.
 The one generated header, ``dynode_tableaus.cuh``, holds the Tsit5 tableau
 written out from :mod:`dynode_tpu_torch.ode.solvers`, so the kernel's
 coefficients are the Python floats of the tableau, never retyped.
+
+Shape builds. The library instantiates each kernel for the shapes of the
+production models only. Every other shape of a kernel family
+(:data:`FAMILIES`) is built on its own, at first use
+(:func:`shape_library`): a small generated translation unit includes the
+family's source -- the library's own templates for the multi-strain
+kernels, the general SEIP kernels of ``csrc/shapes/`` -- and instantiates
+them for the shape behind ``extern "C"`` entries of its own. It is compiled
+with the same flags (the source's ``SOURCE_FLAGS`` too) straight into a
+shared library under
+``build/dynode_tpu_torch/<shapes_key>/shapes/<family>_<shape>/``, keyed
+on every source, the flags and the shape, and replaced atomically.
+:func:`prebuild` compiles several at once, one nvcc each, all started
+together. The library itself is unchanged by them: its sources, flags and
+:func:`build_key` do not include ``csrc/shapes/``.
 """
 
 from __future__ import annotations
@@ -34,12 +49,15 @@ import subprocess
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Callable
 
 from ..ode.solvers import Tsit5
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = PACKAGE_DIR / "csrc"
+SHAPES_DIR = SRC_DIR / "shapes"  # sources built per shape only
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "dynode_tpu_torch"
 LIB_NAME = "libdynode_kernels.so"
 HEADER_NAME = "dynode_tableaus.cuh"
@@ -327,16 +345,263 @@ def argtypes() -> dict[str, list]:
     }
 
 
-def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Argument and return types of every C entry point."""
-    for name, arg_types in argtypes().items():
+def _declare(lib: ctypes.CDLL, types: dict[str, list] | None = None) -> ctypes.CDLL:
+    """Argument and return types of every C entry point (of the library, or
+    ``types`` of a shape build)."""
+    for name, arg_types in (argtypes() if types is None else types).items():
         fn = getattr(lib, name)
         fn.argtypes = arg_types
         fn.restype = ctypes.c_int
     return lib
 
 
+# ---------------------------------------------------------------------------
+# shape builds
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Family:
+    """A kernel family built per shape: its generated unit's text for a
+    shape, the ctypes argument types of the unit's entries, and the flags
+    on top of :data:`NVCC_FLAGS` (those of the source it includes)."""
+
+    unit: Callable[[tuple], str]
+    entries: dict[str, list]
+    flags: tuple[str, ...] = ()
+
+
+def _ms_unit(kernel: str, shape: tuple) -> str:
+    """The unit of one multi-strain shape: the library's source of
+    ``kernel`` with its templates at ``(A, K)``, teams 1 and A (A at most
+    32, a warp), behind the library entry's own arguments."""
+    a, k = (int(x) for x in shape)
+    is_2d = kernel.endswith("_2d")
+    teams = [1] + ([a] if 1 < a <= 32 else [])
+    args = f"y0, p, contact, out, batch, {'w' if is_2d else 'dt'}, n_steps, save_stride, threads, st"
+    calls = "\n".join(f"  if (team == {t}) return launch_team<{a}, {k}, {t}>({args});" for t in teams)
+    weights = """  Weights w{};
+  for (int s = 0; s < dynode::kTsit5Stages; ++s) {
+    for (int j = 0; j < dynode::kTsit5Stages; ++j) w.a[s][j] = static_cast<float>(dt * dynode::tsit5_a(s, j));
+    w.b[s] = static_cast<float>(dt * dynode::tsit5_b(s));
+  }
+""" if is_2d else ""
+    layout = ""
+    if is_2d and (a * k) % 8 == 0:
+        # every e / i / r / c group fills whole blocks of 8 rows, so only the s
+        # group pads: the library's Layout asserts padding in every group
+        layout = f"""
+namespace {{
+template <>
+struct Layout<{a}, {k}> {{
+  static constexpr int AK = {a * k};
+  static constexpr int SA = blk8({a});
+  static constexpr int SAK = AK;
+  static constexpr int D2 = SA + 4 * SAK;
+  static constexpr int kPad = SA - {a};  // zero rows of a save: s rows past A only
+  __host__ __device__ static constexpr int pad_row(int j) {{ return {a} + j; }}
+}};
+}}  // namespace
+"""
+    dt_type = "double" if is_2d else "float"
+    p_name = "rates" if is_2d else "params"
+    return f"""// generated by dynode_tpu_torch/ops/_build.py: {kernel}.cu at (A, K) = ({a}, {k})
+#include "{kernel}.cu"
+{layout}
+extern "C" int dynode_{kernel}_shape(int n_age, int n_strain, int team, int threads, const float* y0,
+                                     const float* {p_name}, const float* contact, float* out, int batch,
+                                     {dt_type} dt, int n_steps, int save_stride, void* stream) {{
+  if (n_age != {a} || n_strain != {k} || threads <= 0 || threads > kMaxThreads ||
+      threads % dynode_ms::kWarp != 0) {{
+    return static_cast<int>(cudaErrorInvalidValue);
+  }}
+  const float* p = {p_name};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+{weights}{calls}
+  return static_cast<int>(cudaErrorInvalidValue);
+}}
+"""
+
+
+def _seip_shape(shape: tuple) -> tuple[str, str]:
+    """``("A, J, K, M, L, SEASONAL", "(A, J, K, M, L, seasonal)")`` of a SEIP shape."""
+    *dims, seasonal = (int(x) for x in shape)
+    targs = ", ".join(str(d) for d in dims) + (", true" if seasonal else ", false")
+    return targs, str(tuple(dims) + (bool(seasonal),))
+
+
+def _seip_rk4_unit(shape: tuple) -> str:
+    targs, label = _seip_shape(shape)
+    dims = targs.rsplit(",", 1)[0]
+    return f"""// generated by dynode_tpu_torch/ops/_build.py: shapes/seip_rk4_any.cu at {label}
+#include "seip_rk4_any.cu"
+
+using namespace dynode_seip_any;
+
+extern "C" int dynode_seip_any_layout(int n_knots, int* offsets) {{
+  layout_offsets<{dims}>(n_knots, offsets);
+  return 0;
+}}
+
+extern "C" int dynode_seip_any_time_table(int n_knots, const double* consts, double dt, int n_steps,
+                                          float* table, void* stream) {{
+  return launch_table<{targs}>(consts, n_knots, dt, n_steps, table, static_cast<cudaStream_t>(stream));
+}}
+
+extern "C" int dynode_seip_any_rk4(int n_knots, const double* consts, const float* table, const float* y0,
+                                   const float* scales, void* out_s, void* out_e, void* out_i, void* out_c,
+                                   int bf16, int packed, int batch, double dt, int n_steps, int save_stride,
+                                   void* stream) {{
+  const Outs outs{{{{out_s, out_e, out_i, out_c}}, bf16, packed}};
+  return launch_rk4<{targs}>(consts, n_knots, table, y0, scales, outs, batch, dt, n_steps, save_stride,
+                             static_cast<cudaStream_t>(stream));
+}}
+"""
+
+
+def _seip_bs3_unit(shape: tuple) -> str:
+    targs, label = _seip_shape(shape)
+    return f"""// generated by dynode_tpu_torch/ops/_build.py: shapes/seip_bs3_any.cu at {label}
+#include "seip_bs3_any.cu"
+
+using namespace dynode_seip_any;
+
+extern "C" int dynode_seip_any_bs3(int n_knots, const double* consts, const float* y0, const float* scales,
+                                   void* out_s, void* out_e, void* out_i, void* out_c, int* flags, int bf16,
+                                   int packed, int batch, int block_b, int n_saves, double save_every,
+                                   double rtol, double atol, double dt0, int steps_per_save, void* stream) {{
+  const Outs outs{{{{out_s, out_e, out_i, out_c}}, bf16, packed}};
+  return launch_bs3<{targs}>(consts, n_knots, y0, scales, outs, flags, batch, block_b, n_saves, save_every,
+                             rtol, atol, dt0, steps_per_save, static_cast<cudaStream_t>(stream));
+}}
+"""
+
+
+def _families() -> dict[str, Family]:
+    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib = argtypes()
+    outs = [p, p, p, p]  # out_s, out_e, out_i, out_c (0 where not saved)
+    return {
+        "multistrain_tsit5": Family(
+            lambda s: _ms_unit("multistrain_tsit5", s),
+            {"dynode_multistrain_tsit5_shape": lib["dynode_multistrain_tsit5"]}),
+        "multistrain_tsit5_2d": Family(
+            lambda s: _ms_unit("multistrain_tsit5_2d", s),
+            {"dynode_multistrain_tsit5_2d_shape": lib["dynode_multistrain_tsit5_2d"]}),
+        "seip_rk4": Family(_seip_rk4_unit, {
+            "dynode_seip_any_layout": [i, p],
+            "dynode_seip_any_time_table": [i, p, d, i, p, p],  # n_knots, consts, dt, n_steps, table, stream
+            "dynode_seip_any_rk4": [i, p, p, p, p, *outs,  # n_knots, consts, table, y0, scales
+                                    i, i, i, d, i, i, p],  # bf16, packed, batch, dt, n_steps, save_stride, stream
+        }),
+        "seip_bs3": Family(_seip_bs3_unit, {
+            "dynode_seip_any_bs3": [i, p, p, p, *outs, p,  # n_knots, consts, y0, scales, outs, flags
+                                    i, i, i, i, i,  # bf16, packed, batch, block_b, n_saves
+                                    d, d, d, d, i, p],  # save_every, rtol, atol, dt0, steps_per_save, stream
+        }, SOURCE_FLAGS["seip_bs3.cu"]),  # the production BS3's numerics
+    }
+
+
+#: the kernel families built per shape, by name
+FAMILIES = _families()
+
+
+def shape_sources() -> list[Path]:
+    """The sources only the shape builds use, in a stable order."""
+    return sorted(SHAPES_DIR.glob("*.cu")) + sorted(SHAPES_DIR.glob("*.cuh"))
+
+
+def shapes_key() -> str:
+    """Hash of the library's key (its sources, header and flags) and the
+    shape builds' own sources."""
+    h = hashlib.sha256(build_key().encode())
+    for path in shape_sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def shape_tag(family: str, shape: tuple) -> str:
+    """``seip_rk4_4_4_3_4_2_0``: a family and a shape as a directory name."""
+    if family not in FAMILIES:
+        raise ValueError(f"unknown kernel family {family!r}; one of {tuple(FAMILIES)}")
+    return "_".join([family, *(str(int(x)) for x in shape)])
+
+
+def shape_dir(family: str, shape: tuple) -> Path:
+    """Where the shape build of ``family`` at ``shape`` lives."""
+    return BUILD_ROOT / shapes_key() / "shapes" / shape_tag(family, shape)
+
+
+def _shape_command(nvcc: str, family: str, unit: Path, out: Path, include_dir: Path) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, *FAMILIES[family].flags, "-shared", "-I", str(include_dir), "-I", str(SRC_DIR),
+            "-I", str(SHAPES_DIR), "-o", str(out), str(unit)]
+
+
+def prebuild(family_shapes) -> float:
+    """Build every ``(family, shape)`` of ``family_shapes`` not built yet,
+    one nvcc each, all started together; the round's wall seconds (0 when
+    all are built). A failed compile raises ``RuntimeError`` with its log."""
+    todo = []
+    for family, shape in dict.fromkeys((f, tuple(int(x) for x in s)) for f, s in family_shapes):
+        d = shape_dir(family, shape)
+        if not (d / LIB_NAME).is_file():
+            todo.append((family, shape, d))
+    if not todo:
+        return 0.0
+    start = time.perf_counter()
+    nvcc = find_nvcc()
+    include_dir = BUILD_ROOT / shapes_key() / "include"
+    include_dir.mkdir(parents=True, exist_ok=True)
+    header = include_dir / HEADER_NAME
+    if not header.is_file():
+        tmp = include_dir / f".{HEADER_NAME}.{os.getpid()}"
+        tmp.write_text(tableau_header())
+        os.replace(tmp, header)
+    works, cmds = [], []
+    for family, shape, d in todo:
+        d.mkdir(parents=True, exist_ok=True)
+        work = Path(tempfile.mkdtemp(dir=d))
+        unit = work / f"{shape_tag(family, shape)}.cu"
+        unit.write_text(FAMILIES[family].unit(shape))
+        works.append(work)
+        cmds.append(_shape_command(nvcc, family, unit, work / LIB_NAME, include_dir))
+    try:
+        results = _run_all(cmds)
+        failed = []
+        for (family, shape, d), work, (cmd, rc, text) in zip(todo, works, results):
+            log = " ".join(cmd) + "\n" + text
+            (d / "nvcc.log").write_text(log)
+            if rc != 0:
+                failed.append(log)
+            else:
+                os.replace(work / LIB_NAME, d / LIB_NAME)  # atomic: all or none
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    finally:
+        for work in works:
+            shutil.rmtree(work, ignore_errors=True)
+    return time.perf_counter() - start
+
+
+@functools.cache
+def shape_library(family: str, shape: tuple) -> ctypes.CDLL:
+    """The shape build of ``family`` at ``shape`` (built at first use),
+    loaded, its entries declared."""
+    shape = tuple(int(x) for x in shape)
+    prebuild([(family, shape)])
+    lib = ctypes.CDLL(str(shape_dir(family, shape) / LIB_NAME))
+    return _declare(lib, FAMILIES[family].entries)
+
+
+def shape_build_log(family: str, shape: tuple) -> str:
+    """The nvcc output of a shape build: ptxas registers and spills, and its
+    wall time."""
+    return (shape_dir(family, shape) / "nvcc.log").read_text()
+
+
 __all__ = [
+    "FAMILIES",
     "NVCC_FLAGS",
     "argtypes",
     "SOURCE_FLAGS",
@@ -348,8 +613,14 @@ __all__ = [
     "library_path",
     "load_library",
     "nvcc_commands",
+    "prebuild",
     "ptxas_resources",
     "sass_counts",
     "sass_mix",
+    "shape_build_log",
+    "shape_dir",
+    "shape_library",
+    "shape_sources",
+    "shapes_key",
     "tableau_header",
 ]

@@ -15,8 +15,10 @@ age groups, K strains) by B ensemble members; the per-member rates are
   (a team of lanes per member, state and stages in registers; see the
   source note there), built for ``sm_90a`` by :mod:`._build`, or raise.
 
-The kernel is instantiated for ``(A, K)`` in :data:`INSTANTIATED`; another
-shape on a CUDA tensor raises ``ValueError``.
+The library instantiates the kernels for ``(A, K)`` in :data:`INSTANTIATED`;
+every other shape up to :data:`MAX_ROWS` state rows is built from the same
+templates at first use (:func:`~._build.shape_library`), and a larger one
+on a CUDA tensor raises ``ValueError``.
 
 The second entry point, :func:`ensemble_solve_tsit5_2d`, is the port of the
 JAX 2-D variant (``multistrain_pallas.py``'s ``_solve_kernel_2d``): the same
@@ -48,8 +50,16 @@ A_DIM = 2
 K_DIM = 3
 D_ROWS = A_DIM + 4 * A_DIM * K_DIM
 
-#: (n_age, n_strain) shapes the CUDA kernel is compiled for
+#: (n_age, n_strain) shapes the library's CUDA kernels are compiled for;
+#: any other goes to a shape build of the same templates
 INSTANTIATED = ((2, 3), (3, 2))
+#: most state rows ``A + 4AK`` a kernel takes: a lane of a one-lane team
+#: holds a member's rows and its six stages, fully unrolled, so a shape
+#: build's compile grows with them; ``chip_sweep.py shapes`` times the
+#: builds up to this limit (``ROADMAP.md`` Queue 3 logs it)
+MAX_ROWS = 256
+#: most ages a team of one lane per age takes: a team lies within a warp
+MAX_TEAM = 32
 
 #: threads a block of the two kernels. ``chip_sweep.py multistrain`` on an
 #: H100 80GB HBM3 at 700 W: 64 and 128 level at every team width and batch,
@@ -60,8 +70,8 @@ THREADS = 128
 
 def teams(n_age: int) -> tuple[int, ...]:
     """Lanes per member the kernels are compiled for: one lane for the whole
-    member, or one lane per age."""
-    return (1, n_age)
+    member, or one lane per age up to :data:`MAX_TEAM` ages."""
+    return (1, n_age) if 1 < n_age <= MAX_TEAM else (1,)
 
 
 #: widest batch at which the launchers give each age its own lane. The
@@ -81,7 +91,7 @@ def pick_team(batch: int, n_age: int) -> int:
     registers a lane give 8 resident warps an SM); a wide one fills the card
     either way, and there the team's shuffles are extra issue.
     """
-    return n_age if batch <= TEAM_UP_TO else 1
+    return n_age if batch <= TEAM_UP_TO and n_age <= MAX_TEAM else 1
 
 
 def _launch_shape(batch: int, n_age: int, team: int | None,
@@ -116,6 +126,26 @@ def _contact_upload(contact: tuple[tuple[float, ...], ...], device: torch.device
 
 def _d_rows(n_age: int, n_strain: int) -> int:
     return n_age + 4 * n_age * n_strain
+
+
+def _check_shape(n_age: int, n_strain: int) -> None:
+    """``ValueError`` for a shape no kernel takes: past :data:`MAX_ROWS`
+    state rows (checked before any device work)."""
+    if (n_age, n_strain) not in INSTANTIATED and (
+            n_age < 1 or n_strain < 1 or _d_rows(n_age, n_strain) > MAX_ROWS):
+        raise ValueError(
+            f"the multi-strain kernels take n_age, n_strain >= 1 and at most {MAX_ROWS} state rows "
+            f"A + 4AK, not {_d_rows(n_age, n_strain)} at ({n_age}, {n_strain})")
+
+
+def _kernel_entry(kernel: str, n_age: int, n_strain: int):
+    """The C entry of ``kernel`` (``"multistrain_tsit5"`` or ``"_2d"``) for
+    ``(n_age, n_strain)``: the library's at an instantiated shape, else the
+    shape build's, which takes the same arguments."""
+    if (n_age, n_strain) in INSTANTIATED:
+        return getattr(_build.load_library(), f"dynode_{kernel}")
+    _check_shape(n_age, n_strain)
+    return getattr(_build.shape_library(kernel, (n_age, n_strain)), f"dynode_{kernel}_shape")
 
 
 def pack_state(y0, batch: int, n_age: int = A_DIM, n_strain: int = K_DIM) -> torch.Tensor:
@@ -320,18 +350,16 @@ def launch_multistrain_tsit5(
     team: int | None = None,
     threads: int | None = None,
 ) -> torch.Tensor:
-    """Launch ``csrc/multistrain_tsit5.cu`` on packed CUDA inputs.
+    """Launch ``csrc/multistrain_tsit5.cu`` on packed CUDA inputs: the
+    library's instantiation, or the shape build at another ``(n_age,
+    n_strain)`` (:func:`_kernel_entry`).
 
     ``contact`` is the ``(A, A)`` matrix, a tensor or nested floats;
     ``team`` (lanes per member, one of :func:`teams`) and ``threads`` (a
     block) default to :func:`pick_team` and :data:`THREADS`. Adds one to
     ``launch_multistrain_tsit5.launches`` per launch.
     """
-    if (n_age, n_strain) not in INSTANTIATED:
-        raise ValueError(
-            f"the CUDA kernel is instantiated for (n_age, n_strain) in {INSTANTIATED}, "
-            f"not ({n_age}, {n_strain})"
-        )
+    _check_shape(n_age, n_strain)
     device = _device.require_hopper(y_packed.device)
     d_rows, batch = y_packed.shape
     if d_rows != _d_rows(n_age, n_strain) or p_packed.shape != (4 * n_strain, batch):
@@ -344,9 +372,9 @@ def launch_multistrain_tsit5(
     n_saves = n_steps // save_stride + 1
     contact_dev = _contact_on(contact, device, n_age)
     out = torch.empty((n_saves, d_rows, batch), dtype=torch.float32, device=device)
-    lib = _build.load_library()
+    entry = _kernel_entry("multistrain_tsit5", n_age, n_strain)
     with torch.cuda.device(device):
-        rc = lib.dynode_multistrain_tsit5(
+        rc = entry(
             n_age, n_strain, team, threads, y_packed.data_ptr(), p_packed.data_ptr(),
             contact_dev.data_ptr(), out.data_ptr(), batch, dt, n_steps, save_stride,
             torch.cuda.current_stream(device).cuda_stream,
@@ -567,17 +595,15 @@ def launch_multistrain_tsit5_2d(
     team: int | None = None,
     threads: int | None = None,
 ) -> torch.Tensor:
-    """Launch ``csrc/multistrain_tsit5_2d.cu`` on aligned CUDA inputs.
+    """Launch ``csrc/multistrain_tsit5_2d.cu`` on aligned CUDA inputs (the
+    library's instantiation or a shape build, as
+    :func:`launch_multistrain_tsit5`).
 
     ``contact``, ``team`` and ``threads`` as for
     :func:`launch_multistrain_tsit5`. Adds one to
     ``launch_multistrain_tsit5_2d.launches`` per launch.
     """
-    if (n_age, n_strain) not in INSTANTIATED:
-        raise ValueError(
-            f"the CUDA kernel is instantiated for (n_age, n_strain) in {INSTANTIATED}, "
-            f"not ({n_age}, {n_strain})"
-        )
+    _check_shape(n_age, n_strain)
     device = _device.require_hopper(y_packed.device)
     _, d2 = _offsets_2d(n_age, n_strain)
     batch = y_packed.shape[1]
@@ -591,9 +617,9 @@ def launch_multistrain_tsit5_2d(
     n_saves = n_steps // save_stride + 1
     contact_dev = _contact_on(contact, device, n_age)
     out = torch.empty((n_saves, d2, batch), dtype=torch.float32, device=device)
-    lib = _build.load_library()
+    entry = _kernel_entry("multistrain_tsit5_2d", n_age, n_strain)
     with torch.cuda.device(device):
-        rc = lib.dynode_multistrain_tsit5_2d(
+        rc = entry(
             n_age, n_strain, team, threads, y_packed.data_ptr(), p_packed.data_ptr(),
             contact_dev.data_ptr(), out.data_ptr(), batch, dt, n_steps, save_stride,
             torch.cuda.current_stream(device).cuda_stream,
@@ -680,6 +706,8 @@ def ensemble_solve_tsit5_2d(
 
 __all__ = [
     "INSTANTIATED",
+    "MAX_ROWS",
+    "MAX_TEAM",
     "TEAM_UP_TO",
     "THREADS",
     "compile_facts",

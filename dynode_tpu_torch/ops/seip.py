@@ -28,9 +28,16 @@ the JAX kernel's member-tile layout ``(T, *compartment, 8, B // 8)``
 (:func:`pack_members`; ``B`` a multiple of 1,024), which the CUDA kernels
 write directly.
 
-The kernels are instantiated for the production shape
-:data:`INSTANTIATED` only; another shape on a CUDA tensor raises
-``ValueError``.
+The library's kernels are instantiated for the production shape
+:data:`INSTANTIATED`. Every other shape -- any ``(A, J, K, M, L, seasonal)``
+that ``models/seip.py::seip_config`` builds -- goes to a second pair of
+CUDA kernels written for any shape (``csrc/shapes/seip_rk4_any.cu``,
+``seip_bs3_any.cu`` on ``seip_any.cuh``), built for its shape at first use
+(:func:`~._build.shape_library`). Their plain versions are this module's
+too: at those shapes :func:`seip_kernel_rhs` and :func:`_member_norm` sum
+over the member's structure in the general kernels' order
+(:func:`is_production`). A shape whose CTA would need more shared memory
+than the card has (:func:`check_kernel_shape`) raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -51,7 +58,8 @@ from .generic import _grid
 SUB, LANE = 8, 128
 BLOCK = SUB * LANE  # members per tile of the packed layout
 
-#: (A, J, K, M, L, seasonal) the CUDA kernels are compiled for
+#: (A, J, K, M, L, seasonal) the library's CUDA kernels are compiled for;
+#: every other shape is built on its own (module docstring)
 INSTANTIATED = ((4, 4, 4, 4, 2, True),)
 #: most spline knots per (age, dose) the kernels take
 MAX_KNOTS = 4
@@ -78,8 +86,16 @@ ADAPTIVE_BLOCKS = (4, 8, 16)
 #: SM (width 4; 96 and 80 registers, 244 and 472 bytes of spill stores) took
 #: 32.870 and 52.547 ms against 28.820 ms with C saved.
 RK4_WIDTH = 16
-#: floats per time row: season, a pulse per strain, phi, then nu (a, k)
+#: floats before nu(a, k) in a time row of the production shape: season, a
+#: pulse per strain, phi (:func:`time_head` at any strain count)
 TIME_HEAD = 4
+#: members (warps) per CTA of the general RK4 kernel (``kWidth`` in
+#: ``csrc/shapes/seip_rk4_any.cu``), and the widest lockstep block of the
+#: general BS3 kernel (``kMaxBlock`` in ``seip_bs3_any.cu``)
+ANY_RK4_WIDTH = 8
+ANY_MAX_BLOCK = 16
+#: shared memory a CTA may take on an H100 (227 KB)
+MAX_SHARED_BYTES = 232448
 
 #: members per lockstep block when the caller names none: the fastest above
 SEIP_ADAPTIVE_BLOCK = 4
@@ -109,6 +125,17 @@ def unpack_members(x: torch.Tensor) -> torch.Tensor:
     nb = nl // LANE
     x = x.reshape(*lead, SUB, nb, LANE).movedim(-2, -3)  # (..., nb, 8, 128)
     return x.reshape(*lead, nb * SUB * LANE)
+
+
+def time_head(n_strains: int) -> int:
+    """Floats before nu(a, k) in a time row: season, one pulse per strain, phi."""
+    return 2 + n_strains
+
+
+def is_production(dims, seasonal: bool) -> bool:
+    """Whether ``(A, J, K, M, L)`` and ``seasonal`` are the library kernels'
+    shape (else the general kernels, and their sum order, serve it)."""
+    return (*dims, bool(seasonal)) in INSTANTIATED
 
 
 def _norm_scales(beta_scales, n_strains: int, dtype, device=None) -> torch.Tensor:
@@ -244,6 +271,7 @@ class _Consts:
         self.intro_on = [float(v) != 0.0 for v in P.intro_perc]
         self.mask_on = [[float(v) != 0.0 for v in row] for row in P.intro_age_mask]
         self.omega_on = [float(v) != 0.0 for v in P.omega]
+        self.general = not is_production(P.dims, P.seasonal)
 
     def c(self, value: float) -> torch.Tensor:
         """A Python float rounded to the working dtype, on the device."""
@@ -332,12 +360,10 @@ def rk4_stage_times(dt: float, n_steps: int, dtype=torch.float32, device=None) -
 
 
 def _time_rows(C: _Consts, t: torch.Tensor) -> torch.Tensor:
-    """``(T, TIME_HEAD + A * K)``: the time rows of the kernels at times
+    """``(T, time_head(L) + A * K)``: the time rows of the kernels at times
     ``t`` (``(T,)``): season, the pulse of each strain (0 where it has no
     introduction), phi (0 without seasonal vaccination), then ``nu[a, k]``."""
     A, J, K, M, L = C.dims
-    if 2 + L != TIME_HEAD:
-        raise ValueError(f"a time row holds season, {TIME_HEAD - 2} pulses and phi; got L = {L}")
     season, pulses, nu, phi = _time_scalars(C, t)
     zero = torch.zeros_like(t)
     head = [season, *(zero if p is None else p for p in pulses), zero if phi is None else phi]
@@ -345,9 +371,10 @@ def _time_rows(C: _Consts, t: torch.Tensor) -> torch.Tensor:
 
 
 def seip_time_table_reference(P: SeipStatic, *, dt: float, n_steps: int, device) -> torch.Tensor:
-    """The plain version of ``csrc/seip_rk4.cu``'s table kernel:
-    ``(3 * n_steps, TIME_HEAD + A * K)`` float32, the time rows of the stage
-    times of :func:`rk4_stage_times`, step by step."""
+    """The plain version of the RK4 kernels' table kernel (``csrc/seip_rk4.cu``,
+    ``csrc/shapes/seip_rk4_any.cu``): ``(3 * n_steps, time_head(L) + A * K)``
+    float32, the time rows of the stage times of :func:`rk4_stage_times`,
+    step by step."""
     C = _Consts(P, torch.float32, torch.device(device))
     return _time_rows(C, rk4_stage_times(dt, n_steps, device=C.device).reshape(-1))
 
@@ -357,18 +384,25 @@ def seip_kernel_rhs(C: _Consts, y, t: torch.Tensor, scale: torch.Tensor):
 
     ``y``: ``S (A, J, K, M, B)``, ``E/I/C (A, J, K, L, B)``; ``t``: ``(1,)``
     or one time per member ``(B,)``; ``scale``: ``(L, B)``. The sums over
-    the member's structure follow the kernels' lanes (:func:`_lanes`): a
-    lane's own values in order, then :func:`_halves` over lanes.
+    the member's structure follow the kernels' lanes: at the production
+    shape (:func:`_lanes`) a lane's own values in order, then :func:`_halves`
+    over lanes; at any other shape the general kernels' order
+    (``csrc/shapes/seip_any.cuh``), sum_{j,k} I in cell order and
+    sum_{j,m} S over m first, then over j.
     """
     S, E, I, _ = y
     A, J, K, M, L = C.dims
     season, pulses, nu, phi = _time_scalars(C, t)
 
     # ---- force of infection: sum_{j,k} I per (a, l), plus the pulse ----------
-    lanes_i = _lanes(I)  # (A, lanes, pair * L, B)
-    pair = lanes_i.shape[2] // L
-    part = _seq_sum(lanes_i[:, :, q * L:(q + 1) * L] for q in range(pair))
-    inf = _halves(part, 1)  # (A, L, B)
+    if C.general:
+        flat_i = I.reshape(A, J * K, L, -1)
+        inf = _seq_sum(flat_i[:, jk] for jk in range(J * K))  # (A, L, B)
+    else:
+        lanes_i = _lanes(I)  # (A, lanes, pair * L, B)
+        pair = lanes_i.shape[2] // L
+        part = _seq_sum(lanes_i[:, :, q * L:(q + 1) * L] for q in range(pair))
+        inf = _halves(part, 1)  # (A, L, B)
     inf = [[inf[a, l] for l in range(L)] for a in range(A)]
     for l in range(L):
         if pulses[l] is not None:
@@ -404,7 +438,8 @@ def seip_kernel_rhs(C: _Consts, y, t: torch.Tensor, scale: torch.Tensor):
             dS[:, h, :, 0] = dS[:, h, :, 0] + C.gamma[l] * I[:, j, :, l]
 
     # ---- vaccination uptake (saturated per dose tier) --------------------------
-    sbd = _halves(_seq_sum(S[:, :, :, m] for m in range(M)), 1)  # (A, K, B)
+    by_m = _seq_sum(S[:, :, :, m] for m in range(M))  # (A, J, K, B)
+    sbd = _seq_sum(by_m[:, j] for j in range(J)) if C.general else _halves(by_m, 1)  # (A, K, B)
     rate = torch.minimum(
         (nu * C.pop[:, None, None]) / torch.maximum(sbd, C.c(1e-8)), C.c(1.0))
     for kk in range(K):
@@ -413,7 +448,7 @@ def seip_kernel_rhs(C: _Consts, y, t: torch.Tensor, scale: torch.Tensor):
             out = r * S[:, :, kk]  # (A, J, M, B)
             dS[:, :, kk] = dS[:, :, kk] - out
             dS[:, :, kk + 1, 0] = dS[:, :, kk + 1, 0] + _seq_sum(out[:, :, m] for m in range(M))
-        else:
+        elif M > 1:
             out = r * S[:, :, kk, 1:]
             dS[:, :, kk, 1:] = dS[:, :, kk, 1:] - out
             dS[:, :, kk, 0] = dS[:, :, kk, 0] + _seq_sum(out[:, :, m] for m in range(M - 1))
@@ -521,16 +556,35 @@ def seip_solve_reference(
 
 def _member_norm(C: _Consts, err, y, y_new, atol, rtol) -> torch.Tensor:
     """Each member's scaled RMS error, summed in the kernel's order: a
-    lane's 20 values one after another, then by halves over the 32 lanes."""
+    lane's values one after another (at the production shape its 20; at any
+    other, S of its cells in turn, then E, I, C), then by halves over the 32
+    lanes."""
     q = []
     for e, a, b in zip(err, y, y_new):
         r = e / (atol + rtol * torch.maximum(a.abs(), b.abs()))
-        q.append(_lanes(r * r))  # (A, lanes, values, B)
-    q = torch.cat(q, dim=2)
+        q.append(_cell_lanes(r * r) if C.general else _lanes(r * r))
     n_elems = sum(int(np.prod(c.shape[:-1])) for c in y)
-    sq = _seq_sum(q[:, :, i] for i in range(q.shape[2]))  # (A, lanes, B)
-    sq = _halves(sq.reshape(-1, sq.shape[-1]), 0)
+    if C.general:  # (32, values, B) each
+        q = torch.cat(q, dim=1)
+        sq = _seq_sum(q[:, i] for i in range(q.shape[1]))
+    else:  # (A, lanes, values, B) each
+        q = torch.cat(q, dim=2)
+        sq = _seq_sum(q[:, :, i] for i in range(q.shape[2])).reshape(-1, q.shape[-1])
+    sq = _halves(sq, 0)  # (32, B) -> (B,)
     return torch.sqrt(sq * C.c(1.0 / n_elems))
+
+
+def _cell_lanes(x: torch.Tensor) -> torch.Tensor:
+    """``(A, J, K, X, B)`` -> ``(32, P * X, B)``: the general kernels' lanes,
+    lane q holding cells q, q + 32, ... (P of them) of the flattened (a, j, k)
+    cells, each cell's X values in order; cells past the member are zero,
+    which adds nothing to a sum."""
+    A, J, K, X, B = x.shape
+    cells = A * J * K
+    per_lane = -(-cells // 32)
+    flat = x.reshape(cells, X, B)
+    flat = torch.cat([flat, flat.new_zeros((per_lane * 32 - cells, X, B))])
+    return flat.reshape(per_lane, 32, X, B).transpose(0, 1).reshape(32, per_lane * X, B)
 
 
 def seip_solve_adaptive_reference(
@@ -651,15 +705,53 @@ def seip_solve_adaptive_reference(
 # ---------------------------------------------------------------------------
 
 
-def _check_instantiated(P: SeipStatic) -> None:
-    shape = (*P.dims, P.seasonal)
-    if shape not in INSTANTIATED:
-        raise ValueError(
-            f"the SEIP kernels are instantiated for (A, J, K, M, L, seasonal) in "
-            f"{INSTANTIATED}, not {shape}")
+def _ceil4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def any_shared_bytes(dims, kernel: str, block_b: int = ANY_MAX_BLOCK) -> int:
+    """Dynamic shared memory of a CTA of the general kernels
+    (``csrc/shapes/``): the constants at :data:`MAX_KNOTS` knots, then each
+    warp's slab (its member's S, E, I and the sums over them) -- and for
+    ``kernel == "bs3"`` the attempt's four time rows and the block's norms.
+    """
+    A, J, K, M, L = dims
+    cells = A * J * K
+    consts = _ceil4(A * A + 3 * L * A + 2 * L + A + 3 + 4 * L + A * K * (4 + 2 * MAX_KNOTS) + M
+                    + L * J * K * M + J * L)
+    slab = _ceil4(cells * (M + 2 * L) + 2 * A * L + A * K + L)
+    if kernel == "rk4":
+        return 4 * (consts + ANY_RK4_WIDTH * slab)
+    row = time_head(L) + A * K
+    return 4 * (consts + block_b * (slab + _ceil4(4 * row)) + 4 * ANY_MAX_BLOCK)
+
+
+def check_kernel_shape(P: SeipStatic, block_b: int | None = None) -> None:
+    """The kernels' limits (``ValueError`` naming the limit): at most
+    :data:`MAX_KNOTS` spline knots; off the production shape, a CTA of the
+    general kernels within :data:`MAX_SHARED_BYTES` of shared memory (RK4's
+    :data:`ANY_RK4_WIDTH` members, or BS3's ``block_b``)."""
     if P.vax_knots.shape[-1] > MAX_KNOTS:
         raise ValueError(f"the SEIP kernels take at most {MAX_KNOTS} spline knots, "
                          f"got {P.vax_knots.shape[-1]}")
+    if is_production(P.dims, P.seasonal):
+        return
+    kernel, width = ("rk4", ANY_RK4_WIDTH) if block_b is None else ("bs3", block_b)
+    need = any_shared_bytes(P.dims, kernel, width)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"the general SEIP {kernel} kernel at (A, J, K, M, L) = {P.dims} needs {need:,} bytes of shared "
+            f"memory for a CTA of {width} members, over the card's {MAX_SHARED_BYTES:,}")
+
+
+def _shape(P: SeipStatic) -> tuple:
+    return (*P.dims, int(P.seasonal))
+
+
+def _device_constants(P: SeipStatic, device) -> torch.Tensor:
+    """The general kernels' constants: :func:`_host_constants` on the card,
+    where every CTA rounds them to float."""
+    return torch.as_tensor(_host_constants(P), device=device)
 
 
 def _comp_shapes(dims) -> list[tuple[int, ...]]:
@@ -668,7 +760,7 @@ def _comp_shapes(dims) -> list[tuple[int, ...]]:
 
 
 def _kernel_inputs(y0, P: SeipStatic, scales: torch.Tensor, device):
-    """``(y0 flat (640,) f32, scales (L, B) f32, constants (n,) f64 host)``."""
+    """``(y0 flat f32, scales (L, B) f32, constants (n,) f64 host)``."""
     flat = torch.cat([torch.as_tensor(c).reshape(-1) for c in y0])
     y0_flat = flat.to(device=device, dtype=torch.float32).contiguous()
     return y0_flat, scales.to(torch.float32).contiguous(), _host_constants(P)
@@ -698,22 +790,33 @@ def _ptr(a: np.ndarray) -> int:
 
 
 def launch_seip_time_table(P: SeipStatic, *, dt: float, n_steps: int, device) -> torch.Tensor:
-    """Launch ``csrc/seip_rk4.cu``'s table kernel on ``device`` (CUDA):
-    ``(3 * n_steps, TIME_HEAD + A * K)`` float32 time rows of the RK4 stage
-    times, equal to :func:`seip_time_table_reference` bit for bit.
+    """Launch the RK4 kernels' table kernel on ``device`` (CUDA): the
+    library's (``csrc/seip_rk4.cu``) at the production shape, the shape
+    build of ``csrc/shapes/seip_rk4_any.cu`` at any other.
+    ``(3 * n_steps, time_head(L) + A * K)`` float32 time rows of the RK4
+    stage times, equal to :func:`seip_time_table_reference` bit for bit.
 
     Adds one to ``launch_seip_time_table.launches`` per launch.
     """
-    _check_instantiated(P)
+    check_kernel_shape(P)
     device = _device.require_hopper(device)
-    A, _, K, _, _ = P.dims
-    table = torch.empty((3 * n_steps, TIME_HEAD + A * K), dtype=torch.float32, device=device)
-    consts = _host_constants(P)
-    lib = _build.load_library()
-    with torch.cuda.device(device):
-        rc = lib.dynode_seip_time_table(
-            *P.dims, int(P.seasonal), P.vax_knots.shape[-1], _ptr(consts), float(dt), n_steps,
-            table.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    A, _, K, _, L = P.dims
+    table = torch.empty((3 * n_steps, time_head(L) + A * K), dtype=torch.float32, device=device)
+    n_knots = P.vax_knots.shape[-1]
+    if is_production(P.dims, P.seasonal):
+        consts = _host_constants(P)
+        lib = _build.load_library()
+        with torch.cuda.device(device):
+            rc = lib.dynode_seip_time_table(
+                *P.dims, int(P.seasonal), n_knots, _ptr(consts), float(dt), n_steps,
+                table.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    else:
+        consts = _device_constants(P, device)
+        lib = _build.shape_library("seip_rk4", _shape(P))
+        with torch.cuda.device(device):
+            rc = lib.dynode_seip_any_time_table(
+                n_knots, consts.data_ptr(), float(dt), n_steps, table.data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"seip time-table kernel launch failed: CUDA error {rc}")
     launch_seip_time_table.launches += 1
@@ -727,27 +830,35 @@ def launch_seip_rk4(
     y0, P: SeipStatic, scales: torch.Tensor, *, dt: float, n_steps: int, save_stride: int,
     save: tuple[int, ...], save_dtype: torch.dtype, packed: bool,
 ):
-    """Launch ``csrc/seip_rk4.cu``: ``y0`` the shared initial state,
-    ``scales`` ``(L, B)`` on a CUDA device; the time table first
-    (:func:`launch_seip_time_table`, on the same stream), then the solve,
-    :data:`RK4_WIDTH` members per CTA. Returns the saved compartments.
+    """Launch the RK4 kernel: ``csrc/seip_rk4.cu`` at the production shape
+    (:data:`RK4_WIDTH` members per CTA), the shape build of
+    ``csrc/shapes/seip_rk4_any.cu`` at any other (:data:`ANY_RK4_WIDTH`).
+    ``y0`` the shared initial state, ``scales`` ``(L, B)`` on a CUDA device;
+    the time table first (:func:`launch_seip_time_table`, on the same
+    stream), then the solve. Returns the saved compartments.
 
     Adds one to ``launch_seip_rk4.launches`` per launch of the solve.
     """
-    _check_instantiated(P)
+    check_kernel_shape(P)
     device = _device.require_hopper(scales.device)
     batch = scales.shape[-1]
     y0_flat, scales, consts = _kernel_inputs(y0, P, scales, device)
     outs, ptrs = _outputs(P, save, n_steps // save_stride + 1, batch, save_dtype, packed, device)
     table = launch_seip_time_table(P, dt=dt, n_steps=n_steps, device=device)
-    lib = _build.load_library()
-    with torch.cuda.device(device):
-        rc = lib.dynode_seip_rk4(
-            *P.dims, int(P.seasonal), P.vax_knots.shape[-1], _ptr(consts), table.data_ptr(),
-            y0_flat.data_ptr(), scales.data_ptr(), *ptrs,
-            int(save_dtype == torch.bfloat16), int(packed), batch, float(dt), n_steps,
-            save_stride, torch.cuda.current_stream(device).cuda_stream,
-        )
+    tail = (y0_flat.data_ptr(), scales.data_ptr(), *ptrs, int(save_dtype == torch.bfloat16), int(packed),
+            batch, float(dt), n_steps, save_stride)
+    n_knots = P.vax_knots.shape[-1]
+    if is_production(P.dims, P.seasonal):
+        lib = _build.load_library()
+        with torch.cuda.device(device):
+            rc = lib.dynode_seip_rk4(*P.dims, int(P.seasonal), n_knots, _ptr(consts), table.data_ptr(), *tail,
+                                     torch.cuda.current_stream(device).cuda_stream)
+    else:
+        consts = _device_constants(P, device)
+        lib = _build.shape_library("seip_rk4", _shape(P))
+        with torch.cuda.device(device):
+            rc = lib.dynode_seip_any_rk4(n_knots, consts.data_ptr(), table.data_ptr(), *tail,
+                                         torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"seip_rk4 kernel launch failed: CUDA error {rc}")
     launch_seip_rk4.launches += 1
@@ -762,29 +873,37 @@ def launch_seip_bs3(
     atol: float, dt0: float, steps_per_save: int, block_b: int, save: tuple[int, ...],
     save_dtype: torch.dtype, packed: bool,
 ):
-    """Launch ``csrc/seip_bs3.cu`` (one CTA of ``block_b`` warps per lockstep
-    block). Returns ``(saved compartments, flags (nb, 3) int32)`` with the
-    columns exhausted, accepted, rejected.
+    """Launch the BS3 kernel, one CTA of ``block_b`` warps per lockstep
+    block: ``csrc/seip_bs3.cu`` at the production shape, the shape build of
+    ``csrc/shapes/seip_bs3_any.cu`` at any other. Returns ``(saved
+    compartments, flags (nb, 3) int32)`` with the columns exhausted,
+    accepted, rejected.
 
     Adds one to ``launch_seip_bs3.launches`` per launch.
     """
-    _check_instantiated(P)
     if block_b not in ADAPTIVE_BLOCKS:
         raise ValueError(f"block_b must be one of {ADAPTIVE_BLOCKS}, got {block_b}")
+    check_kernel_shape(P, block_b)
     device = _device.require_hopper(scales.device)
     batch = scales.shape[-1]
     y0_flat, scales, consts = _kernel_inputs(y0, P, scales, device)
     outs, ptrs = _outputs(P, save, n_saves, batch, save_dtype, packed, device)
     flags = torch.empty((-(-batch // block_b), 3), dtype=torch.int32, device=device)
-    lib = _build.load_library()
-    with torch.cuda.device(device):
-        rc = lib.dynode_seip_bs3(
-            *P.dims, int(P.seasonal), P.vax_knots.shape[-1], _ptr(consts),
-            y0_flat.data_ptr(), scales.data_ptr(), *ptrs, flags.data_ptr(),
-            int(save_dtype == torch.bfloat16), int(packed), batch, block_b, n_saves,
-            float(save_every), float(rtol), float(atol), float(dt0), int(steps_per_save),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+    tail = (y0_flat.data_ptr(), scales.data_ptr(), *ptrs, flags.data_ptr(), int(save_dtype == torch.bfloat16),
+            int(packed), batch, block_b, n_saves, float(save_every), float(rtol), float(atol), float(dt0),
+            int(steps_per_save))
+    n_knots = P.vax_knots.shape[-1]
+    if is_production(P.dims, P.seasonal):
+        lib = _build.load_library()
+        with torch.cuda.device(device):
+            rc = lib.dynode_seip_bs3(*P.dims, int(P.seasonal), n_knots, _ptr(consts), *tail,
+                                     torch.cuda.current_stream(device).cuda_stream)
+    else:
+        consts = _device_constants(P, device)
+        lib = _build.shape_library("seip_bs3", _shape(P))
+        with torch.cuda.device(device):
+            rc = lib.dynode_seip_any_bs3(n_knots, consts.data_ptr(), *tail,
+                                         torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"seip_bs3 kernel launch failed: CUDA error {rc}")
     launch_seip_bs3.launches += 1
@@ -925,11 +1044,17 @@ def seip_ensemble_solve_adaptive(
 
 __all__ = [
     "ADAPTIVE_BLOCKS",
+    "ANY_MAX_BLOCK",
+    "ANY_RK4_WIDTH",
+    "MAX_SHARED_BYTES",
     "BLOCK",
     "INSTANTIATED",
     "RK4_WIDTH",
     "SEIP_ADAPTIVE_BLOCK",
     "SeipStatic",
+    "any_shared_bytes",
+    "check_kernel_shape",
+    "is_production",
     "launch_seip_bs3",
     "launch_seip_rk4",
     "launch_seip_time_table",
@@ -942,5 +1067,6 @@ __all__ = [
     "seip_solve_reference",
     "seip_static_params",
     "seip_time_table_reference",
+    "time_head",
     "unpack_members",
 ]

@@ -260,9 +260,13 @@ def simulate_ensemble(
     are independent in the batch-leading layout, and a constant step keeps
     a lane-major ensemble's members apart too, so both equal the unsplit
     solve bit for bit. An adaptive lane-major ensemble shares one dt chain
-    over every member, which separate shards would break, so that
-    combination raises ``ValueError``. The member count must divide over
-    the axis (``ValueError`` otherwise, before any solve).
+    over every member, as JAX's GSPMD program keeps it: there one solve
+    runs on the mesh's first device, and only its RHS is split, each
+    evaluation sending the members' slices to their devices and gathering
+    the derivatives along the member axis (:func:`_sharded_lane_rhs`), so
+    the error norm, the accept/reject decision and dt are the unsplit
+    solve's. The member count must divide over the axis (``ValueError``
+    otherwise, before any solve).
 
     ``donate`` is accepted for the JAX call form and does nothing: the
     solve makes no copy of the parameters that donation would save.
@@ -288,13 +292,13 @@ def _split_ensemble(ode, duration_days, initial_state, params, solver_parameters
     """:func:`simulate_ensemble` with its members split over a mesh axis."""
     from ..parallel.mesh import gather_shards, run_shards, shard_plan, split
 
-    if layout == "lane_major" and not solver_parameters.constant_step_size > 0.0:
-        raise ValueError(
-            "an adaptive lane_major ensemble shares one dt chain over all its members, which a split "
-            "over a mesh would break into one chain per shard; use layout='batch_leading' (a chain "
-            "per member) or a constant step (SolverParams(constant_step_size=...))"
-        )
     plan = shard_plan(mesh, axis_name, batch, "ensemble")
+    if layout == "lane_major" and not solver_parameters.constant_step_size > 0.0:
+        # one dt chain over every member: one solve on the first device,
+        # its RHS split over the mesh
+        y0 = tuple(c.to(plan.home) for c in initial_state)
+        return simulate(_sharded_lane_rhs(ode, plan), duration_days, ensemble_state(y0, batch), params,
+                        solver_parameters, sub_save_indices=sub_save_indices, save_step=save_step)
 
     def solve(s):
         dev = plan.place(s)
@@ -311,6 +315,30 @@ def _split_ensemble(ode, duration_days, initial_state, params, solver_parameters
     ys = gather_shards(plan, {s: o.ys for s, o in outs.items()}, dim=-1)
     first = outs[plan.local[0]]
     return pytree.tree_map(lambda x: x.to(plan.home), first).replace(ys=ys)
+
+
+def _sharded_lane_rhs(ode: ODE_Eqns, plan) -> ODE_Eqns:
+    """The lane-major RHS of ``ode`` (:func:`ensemble_rhs`) evaluated over
+    the shards of ``plan``: each call cuts the state along its trailing
+    member axis and the parameters along their leading one, evaluates each
+    shard on its device (:func:`~dynode_tpu_torch.parallel.mesh.run_shards`)
+    and returns the derivatives concatenated along the member axis on
+    ``plan.home``."""
+    from ..parallel.mesh import gather_shards, run_shards, split
+
+    lane = ensemble_rhs(ode)
+
+    def rhs(t, state, params):
+        def shard(s):
+            y = tuple(split(c, plan, s, dim=-1) for c in state)
+            p = pytree.tree_map(lambda x: split(x, plan, s) if isinstance(x, torch.Tensor) else x, params)
+            ts = t.to(plan.place(s), non_blocking=True) if isinstance(t, torch.Tensor) else t
+            return tuple(lane(ts, y, p))
+
+        return gather_shards(plan, run_shards(plan, shard), dim=-1)
+
+    rhs.__annotations__.update(getattr(lane, "__annotations__", {}))  # simulate()'s params check
+    return rhs
 
 
 def tune_step_budget(

@@ -784,3 +784,194 @@ def test_engine_and_inference_split_over_every_card(cuda):
     assert int(fits[0].best_idx) == int(fits[1].best_idx)
     assert torch.equal(fits[0].final_elbos, fits[1].final_elbos)
     assert all(torch.equal(fits[0].all_params[k], fits[1].all_params[k]) for k in fits[0].all_params)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' other shapes: shape builds of #2 and #6, the general SEIP kernels
+# ---------------------------------------------------------------------------
+
+#: shapes of #2 and #6 beyond the library's (2, 3) and (3, 2)
+MS_SHAPES = [(4, 3), (4, 2), (8, 4), (1, 1), (5, 2)]
+MS_CASES = [(kernel, shape, team) for kernel in ("row", "2d") for shape in MS_SHAPES for team in ms.teams(shape[0])]
+SEIP_SHAPES = {"default": (4, 4, 3, 4, 2, 0), "second": (2, 2, 3, 3, 1, 1), "three": (4, 8, 3, 4, 3, 0)}
+
+
+@pytest.fixture(scope="module")
+def shape_builds():
+    """Every shape build these tests run, compiled in one round of nvcc."""
+    if not torch.cuda.is_available() or torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("needs an H100 (CUDA compute capability 9.0)")
+    from dynode_tpu_torch.ops import _build
+
+    units = [(kernel, shape) for kernel in ("multistrain_tsit5", "multistrain_tsit5_2d")
+             for shape in MS_SHAPES + [(2, 3)]]
+    units += [(family, shape) for shape in SEIP_SHAPES.values() for family in ("seip_rk4", "seip_bs3")]
+    return _build.prebuild(units)
+
+
+def _ms_shape_inputs(dev, shape, batch, seed=5):
+    """The multi-strain model at ``shape``: ``multistrain_default_params``
+    with per-strain periods cycled from the defaults', per-member betas."""
+    a, k = shape
+    r0s = tuple(2.0 + 0.25 * i for i in range(k))
+    params = model.multistrain_default_params(
+        r0s, tuple(6.0 + i for i in range(k)), tuple(2.5 + 0.5 * i for i in range(k)),
+        tuple(60.0 + 10 * i for i in range(k)), n_age=a, device=dev)
+    y0 = model.multistrain_initial_state(r0s, tuple(np.full(a, 1.0 / a)), device=dev)
+    scales = np.random.default_rng(seed).uniform(0.6, 1.6, batch)
+    return params, y0, params.beta[None, :] * torch.as_tensor(scales, dtype=torch.float32, device=dev)[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel, shape, team", MS_CASES,
+                         ids=[f"{k}-{a}x{s}-team{t}" for k, (a, s), t in MS_CASES])
+def test_shape_builds_match_plain_version(cuda, shape_builds, kernel, shape, team):
+    """#2 and #6 at shapes the library does not instantiate, at each team
+    width, on a ragged batch (4,095: inside a warp at every team width), 200
+    days; the 2-D kernel's padding rows zero. Tolerance 1e-5."""
+    params, y0, beta = _ms_shape_inputs(cuda, shape, B - 1)
+    counter = ms.launch_multistrain_tsit5 if kernel == "row" else ms.launch_multistrain_tsit5_2d
+    before = counter.launches
+    got, want = _launch(kernel, y0, beta, params, B - 1, shape, team)
+    assert counter.launches == before + 1
+    assert torch.isfinite(got).all() and _rel(got, want) <= TOL
+    if kernel == "2d":
+        d2 = got.shape[1]
+        pad = sorted(set(range(d2)) - set(ms._live_rows_2d(*shape)))
+        assert not got[:, pad].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["multistrain_tsit5", "multistrain_tsit5_2d"])
+def test_shape_build_of_a_library_shape_is_bit_for_bit(cuda, shape_builds, kernel):
+    """A shape build at the library's (2, 3) runs the same templates with the
+    same flags: its saves equal the library's bit for bit at each team
+    width, and the entry point at (2, 3) takes the library."""
+    from dynode_tpu_torch.ops import _build
+
+    params, y0, beta = _inputs(cuda)
+    rates = (beta, params.sigma, params.gamma, params.omega)
+    if kernel == "multistrain_tsit5":
+        y, p, launch = ms.pack_state(y0, B), ms.pack_params(*rates, B), ms.launch_multistrain_tsit5
+    else:
+        y, p, launch = ms.pack_state_2d(y0, B), ms.pack_rates_2d(*rates, B), ms.launch_multistrain_tsit5_2d
+    flat = params.contact_matrix.to(torch.float32).reshape(-1).contiguous()
+    entry = getattr(_build.shape_library(kernel, (2, 3)), f"dynode_{kernel}_shape")
+    for team in ms.teams(2):
+        lib_out = launch(y, p, params.contact_matrix, dt=0.5, n_steps=400, save_stride=2, n_age=2, n_strain=3,
+                         team=team)
+        shape_out = torch.empty_like(lib_out)
+        rc = entry(2, 3, team, ms.THREADS, y.data_ptr(), p.data_ptr(), flat.data_ptr(), shape_out.data_ptr(), B,
+                   0.5, 400, 2, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        assert torch.equal(shape_out, lib_out)
+
+
+@pytest.mark.cuda
+def test_triton_kernels_at_four_ages_three_strains(cuda):
+    """Kernels #1 (Tsit5) and #3 (bosh3) on ``multistrain_rows_rhs(contact,
+    4, 3)`` at B = 4,095, 200 days: #1 within 1e-5 of its plain version, #3
+    with every block's decisions equal and its saves within 1e-5."""
+    params, y0, beta = _ms_shape_inputs(cuda, (4, 3), B - 1)
+    rhs = ms.multistrain_rows_rhs(params.contact_matrix, 4, 3)
+    y = ms.pack_state(y0, B - 1, 4, 3)
+    p = ms.pack_params(beta, params.sigma, params.gamma, params.omega, B - 1, 3)
+    before = gtri.launch_rk_solve.launches
+    got = gen.ensemble_solve_kernel(rhs, y, p, duration=DAYS, dt=0.5, method="tsit5")
+    assert gtri.launch_rk_solve.launches == before + 1
+    want = gen.ensemble_solve_kernel_reference(rhs, y, p, duration=DAYS, dt=0.5, method="tsit5")
+    assert _rel(got, want) <= TOL
+    kw = dict(duration=DAYS, rtol=1e-4, atol=1e-6, method="bosh3")
+    before = gtri.launch_rk_solve_adaptive.launches
+    got, stats = gen.ensemble_solve_kernel_adaptive(rhs, y, p, **kw)
+    assert gtri.launch_rk_solve_adaptive.launches == before + 1
+    want, want_stats = gen.ensemble_solve_kernel_adaptive_reference(rhs, y, p, block_b=gen.ADAPTIVE_BLOCK, **kw)
+    assert int(stats["exhausted_intervals"].sum()) == 0
+    for key in stats:
+        assert torch.equal(stats[key], want_stats[key]), key
+    assert float(_block_rel(got, want, gen.ADAPTIVE_BLOCK).max()) <= TOL
+
+
+def _seip_shape_inputs(dev, name, n):
+    import chip_smoke
+    from dynode_tpu_torch.config import Strain
+    from dynode_tpu_torch.models import seip as seip_model
+
+    cfg = chip_smoke.seip_shape_config(seip_model, Strain, name)
+    params, y0 = seip_model.seip_odeparams(cfg, device=dev), seip_model.seip_initial_state(cfg, device=dev)
+    L = SEIP_SHAPES[name][4]
+    scales = np.random.default_rng(13).uniform(0.85, 1.2, (L, n))
+    return params, y0, torch.as_tensor(scales, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SEIP_SHAPES))
+def test_general_seip_rk4_matches_plain_version(cuda, shape_builds, name):
+    """The general RK4 kernel at a shape ``seip_config`` builds: its time
+    table bit for bit, B = 2,047 (a ragged last CTA of 8) over 60 days with
+    every compartment in float32 (tolerance 1e-5), C in bf16 (1e-2), and
+    the packed layout at B = 2,048."""
+    params, y0, scales = _seip_shape_inputs(cuda, name, 2048)
+    P = tsp.seip_static_params(params)
+    assert (*P.dims, int(P.seasonal)) == SEIP_SHAPES[name]
+    table = tsp.launch_seip_time_table(P, dt=0.5, n_steps=120, device=cuda)
+    assert torch.equal(table, tsp.seip_time_table_reference(P, dt=0.5, n_steps=120, device=cuda))
+    before = tsp.launch_seip_rk4.launches
+    got = tsp.seip_ensemble_solve(y0, params, scales[:, :2047], duration=60.0)
+    assert tsp.launch_seip_rk4.launches == before + 1
+    want = tsp.seip_solve_reference(y0, params, scales, duration=60.0)
+    for g, w in zip(got, want):
+        assert g.shape == w[..., :2047].shape and torch.isfinite(g).all() and _rel(g, w[..., :2047]) <= TOL
+    (c16,) = tsp.seip_ensemble_solve(y0, params, scales[:, :2047], duration=60.0, save=(3,),
+                                     save_dtype=torch.bfloat16)
+    assert c16.dtype == torch.bfloat16 and _rel(c16, want[3][..., :2047]) <= 1e-2
+    (cp,) = tsp.seip_ensemble_solve(y0, params, scales, duration=60.0, save=(3,), packed=True)
+    assert _rel(tsp.unpack_members(cp), want[3]) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_b", [4, 16])
+@pytest.mark.parametrize("name", list(SEIP_SHAPES))
+def test_general_seip_bs3_matches_plain_version(cuda, shape_builds, name, block_b):
+    """The general BS3 kernel, B = 2,047 (a ragged last block), 60 days,
+    rtol 1e-4, atol 1e-3, the same block width on both sides: compiled
+    without contraction and summing as its plain version does, every block
+    takes the plain version's decisions and the saves equal it exactly."""
+    params, y0, scales = _seip_shape_inputs(cuda, name, 2047)
+    kw = dict(duration=60.0, rtol=1e-4, atol=1e-3, save=(0, 3), block_b=block_b)
+    before = tsp.launch_seip_bs3.launches
+    got, stats = tsp.seip_ensemble_solve_adaptive(y0, params, scales, **kw)
+    assert tsp.launch_seip_bs3.launches == before + 1
+    want, want_stats = tsp.seip_solve_adaptive_reference(y0, params, scales, **kw)
+    assert int(stats["exhausted_intervals"].sum()) == 0
+    for key in stats:
+        assert torch.equal(stats[key], want_stats[key]), key
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_over_limit_shapes_raise_and_launch_nothing(cuda):
+    """Past the kernels' limits -- ``MAX_ROWS`` multi-strain state rows, a
+    general SEIP CTA over the card's shared memory -- the launchers raise
+    ``ValueError`` naming the limit and launch nothing."""
+    import dataclasses
+
+    counters = (ms.launch_multistrain_tsit5, ms.launch_multistrain_tsit5_2d, tsp.launch_seip_rk4,
+                tsp.launch_seip_bs3, tsp.launch_seip_time_table)
+    before = [c.launches for c in counters]
+    a, k = 40, 7
+    z = torch.zeros(a + 4 * a * k, 8, device=cuda)
+    for launch in (ms.launch_multistrain_tsit5, ms.launch_multistrain_tsit5_2d):
+        with pytest.raises(ValueError, match="state rows"):
+            launch(z, torch.zeros(4 * k, 8, device=cuda), torch.ones(a, a, device=cuda), dt=0.5, n_steps=2,
+                   save_stride=1, n_age=a, n_strain=k)
+    params, y0, scales = _seip_shape_inputs(cuda, "default", 8)
+    big = dataclasses.replace(tsp.seip_static_params(params), dims=(8, 16, 6, 8, 4))
+    with pytest.raises(ValueError, match="shared memory"):
+        tsp.launch_seip_rk4(y0, big, scales, dt=0.5, n_steps=2, save_stride=2, save=(3,),
+                            save_dtype=torch.float32, packed=False)
+    with pytest.raises(ValueError, match="shared memory"):
+        tsp.launch_seip_bs3(y0, big, scales, n_saves=2, save_every=1.0, rtol=1e-4, atol=1e-3, dt0=0.125,
+                            steps_per_save=8, block_b=16, save=(3,), save_dtype=torch.float32, packed=False)
+    assert [c.launches for c in counters] == before

@@ -98,13 +98,16 @@ def test_save_every_stride():
 
 
 def test_kernel_rejects_uninstantiated_shape():
-    """The CUDA kernel is compiled for (2, 3) and (3, 2) only; a launch at
-    another shape raises and names the compiled set, before any device work."""
+    """The library compiles the CUDA kernel for (2, 3) and (3, 2); any other
+    shape goes to a shape build of the same templates, up to ``MAX_ROWS``
+    state rows: a launch past it raises and names the limit, before any
+    device work."""
     assert tms.INSTANTIATED == ((2, 3), (3, 2))
-    with pytest.raises(ValueError, match="instantiated for"):
+    a, k = 40, 7  # 40 + 4 * 40 * 7 = 1,160 rows
+    with pytest.raises(ValueError, match=f"at most {tms.MAX_ROWS} state rows"):
         tms.launch_multistrain_tsit5(
-            torch.zeros(4 + 4 * 4 * 1, 8), torch.zeros(4, 8), ((1.0,) * 4,) * 4,
-            dt=0.5, n_steps=2, save_stride=1, n_age=4, n_strain=1,
+            torch.zeros(a + 4 * a * k, 8), torch.zeros(4 * k, 8), ((1.0,) * a,) * a,
+            dt=0.5, n_steps=2, save_stride=1, n_age=a, n_strain=k,
         )
 
 

@@ -128,15 +128,17 @@ def test_solve_2d_agrees_with_row_solve(shape):
 
 
 def test_2d_kernel_rejects_uninstantiated_shape():
-    """The 2-D kernel is compiled for (2, 3) and (3, 2) only, as the source
-    instantiates; another shape raises before any device work."""
+    """The library compiles the 2-D kernel for (2, 3) and (3, 2), as the
+    source instantiates; any other shape goes to a shape build, up to
+    ``MAX_ROWS`` state rows: a larger one raises before any device work."""
     src = (_build.SRC_DIR / "multistrain_tsit5_2d.cu").read_text()
     for a, k in tms.INSTANTIATED:
         assert f"launch<{a}, {k}>" in src
-    with pytest.raises(ValueError, match="instantiated for"):
+    a, k = 8, 32  # 8 + 4 * 8 * 32 = 1,032 rows
+    with pytest.raises(ValueError, match=f"at most {tms.MAX_ROWS} state rows"):
         tms.launch_multistrain_tsit5_2d(
-            torch.zeros(40, 8), torch.zeros(32, 8), ((1.0,) * 4,) * 4,
-            dt=0.5, n_steps=2, save_stride=1, n_age=4, n_strain=1,
+            torch.zeros(8 + 4 * 256, 8), torch.zeros(4 * 256, 8), ((1.0,) * a,) * a,
+            dt=0.5, n_steps=2, save_stride=1, n_age=a, n_strain=k,
         )
 
 

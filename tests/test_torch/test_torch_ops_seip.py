@@ -6,6 +6,8 @@ transcription of the JAX kernel's ``_build_rhs``). The CUDA kernel itself is
 compared with the plain version on the card by ``test_torch_cuda.py``.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -201,11 +203,15 @@ def test_plain_solve_conserves_mass_per_age():
 
 
 def test_kernel_route_refuses_other_shapes(monkeypatch):
-    """The CUDA kernels are compiled for the production shape only: another
-    shape raises on the kernel route, before anything is launched."""
+    """The library's CUDA kernels serve the production shape and the
+    general kernels every other; past the kernels' limits (here more than
+    ``MAX_KNOTS`` spline knots) the kernel route raises, before anything is
+    launched."""
     tp, ty = _port_side(seasonal=False, dtype=torch.float32)
     P = tsp.seip_static_params(tp)
-    with pytest.raises(ValueError, match="instantiated"):
+    knots = np.zeros(P.vax_knots.shape[:-1] + (tsp.MAX_KNOTS + 1,))
+    P = dataclasses.replace(P, vax_knots=knots, vax_knot_coeffs=knots)
+    with pytest.raises(ValueError, match=f"at most {tsp.MAX_KNOTS} spline knots"):
         tsp.launch_seip_rk4(ty, P, torch.ones(2, 4), dt=0.5, n_steps=2, save_stride=2,
                             save=(3,), save_dtype=torch.float32, packed=False)
     tp, ty = _port_side(dtype=torch.float32)

@@ -367,10 +367,45 @@ def test_simulate_ensemble_split_refusals():
     from dynode_tpu_torch.config import SolverParams as TSP
 
     _, (tsir, ty0, tp) = _sir_batch(16)
-    with pytest.raises(ValueError, match="batch_leading"):
-        t_ensemble(tsir.sir_ode, 5, ty0, tp, TSP(), layout="lane_major", mesh=_mesh())
     _, (tsir, ty0, tp12) = _sir_batch(12)
     with pytest.raises(ValueError, match="width 12 must divide"):
         t_ensemble(tsir.sir_ode, 5, ty0, tp12, TSP(), mesh=_mesh())
     with pytest.raises(ValueError, match="not one of"):
         t_ensemble(tsir.sir_ode, 5, ty0, tp, TSP(), mesh=_mesh(), axis_name="chain")
+
+
+@pytest.mark.parametrize("batch", [128, 16], ids=["16_a_device", "2_a_device"])
+def test_lane_major_adaptive_split_matches_unsplit_and_jax(batch):
+    """An adaptive lane-major ensemble over the mesh keeps one dt chain: one
+    solve whose RHS is split over the 8 devices. The unsplit call's
+    accepted and rejected steps; its saves bit for bit where each shard is
+    a whole number of 16 members, else within 1e-12 (float64 ``pow`` on CPU
+    tensors rounds a shard of 2 members otherwise than the same members
+    among 16, ROADMAP.md Queue 3); JAX's split call's steps, and its saves
+    within 1e-10."""
+    from dynode_tpu import simulate_ensemble as j_ensemble
+    from dynode_tpu.config import SolverParams as JSP
+    from dynode_tpu_torch import simulate_ensemble as t_ensemble
+    from dynode_tpu_torch.config import SolverParams as TSP
+
+    (jsir, jy0, jp), (tsir, ty0, tp) = _sir_batch(batch)
+    kw = dict(step_budget=128)
+    whole = t_ensemble(tsir.sir_ode, 30, ty0, tp, TSP(**kw), layout="lane_major")
+    got = t_ensemble(tsir.sir_ode, 30, ty0, tp, TSP(**kw), layout="lane_major", mesh=_mesh(),
+                     axis_name="ensemble")
+    assert int(got.result) == 0
+    for key in ("num_accepted", "num_rejected"):
+        assert torch.equal(got.stats[key], whole.stats[key]), key
+    assert torch.equal(got.ts, whole.ts)
+    for g, w in zip(got.ys, whole.ys):
+        assert g.shape == w.shape and g.shape[-1] == batch
+        if (batch // 8) % 16:
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-12, atol=0)
+        else:
+            assert torch.equal(g, w)
+    want = j_ensemble(jsir.sir_ode, 30, jy0, jp, JSP(**kw), layout="lane_major", mesh=_jmesh(),
+                      axis_name="ensemble")
+    for key in ("num_accepted", "num_rejected"):
+        np.testing.assert_array_equal(got.stats[key].numpy(), np.asarray(want.stats[key]))
+    for g, w in zip(got.ys, want.ys):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-10, atol=1e-300)

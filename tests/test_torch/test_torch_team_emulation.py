@@ -4,12 +4,13 @@ A CUDA kernel cannot run here, but the two multi-strain sources use only a
 few CUDA pieces: thread and block indices, ``__ldg`` and ``__shfl_sync``.
 This test compiles ``csrc/multistrain_tsit5.cu`` and
 ``csrc/multistrain_tsit5_2d.cu`` with the host C++ compiler against a small
-emulation of those pieces -- each warp is 32 threads that meet at every
-shuffle, as a warp's lanes do -- and holds what they compute against the
-plain versions on the same inputs. It shows that the lanes of a team hold
-the right ages, read the right lanes, store the right rows (the 2-D
-kernel's padding rows as zero) and that lanes past the batch store nothing,
-at every team width the launchers may pick and on ragged batches.
+emulation of those pieces (``cuda_emulation.py``: each warp is 32 threads
+that meet at every shuffle, as a warp's lanes do) and holds what they
+compute against the plain versions on the same inputs. It shows that the
+lanes of a team hold the right ages, read the right lanes, store the right
+rows (the 2-D kernel's padding rows as zero) and that lanes past the batch
+store nothing, at every team width the launchers may pick and on ragged
+batches.
 
 Tolerance: bit for bit. The emulation rounds every float32 operation
 (``-ffp-contract=off``), in the kernels' expression order, which is the
@@ -17,98 +18,32 @@ plain versions'; on the card nvcc contracts multiply-adds, and
 ``test_torch_cuda.py`` holds the kernels there to 1e-5.
 """
 
-import ctypes
-import re
 import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+import cuda_emulation
 from dynode_tpu_torch.models import multistrain as model
 from dynode_tpu_torch.ops import _build
 from dynode_tpu_torch.ops import multistrain as ms
 
-SHIM = r"""
-#pragma once
-#include <barrier>
-#include <thread>
-#include <vector>
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __restrict__
-#define __launch_bounds__(...)
-typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-struct Idx { unsigned x = 0, y = 0, z = 0; };
-inline thread_local Idx threadIdx, blockIdx, blockDim;
-template <class T> inline T __ldg(const T* p) { return *p; }
-struct Warp { float vals[32]; std::barrier<>* bar; };
-inline thread_local Warp* g_warp = nullptr;
-inline thread_local int g_lane = 0;
-inline float __shfl_sync(unsigned mask, float v, int src, int width = 32) {
-  if (mask != 0xffffffffu) throw 1;
-  g_warp->vals[g_lane] = v;
-  g_warp->bar->arrive_and_wait();
-  const float r = g_warp->vals[(g_lane / width) * width + ((src % width) + width) % width];
-  g_warp->bar->arrive_and_wait();
-  return r;
-}
-namespace emu {
-template <class F, class... Args>
-void launch(int blocks, int threads, F fn, Args... args) {
-  for (int b = 0; b < blocks; ++b) {
-    for (int w = 0; w < threads / 32; ++w) {
-      Warp warp;
-      std::barrier<> bar(32);
-      warp.bar = &bar;
-      std::vector<std::thread> lanes;
-      for (int l = 0; l < 32; ++l) {
-        lanes.emplace_back([&, l] {
-          threadIdx.x = w * 32 + l; blockIdx.x = b; blockDim.x = threads;
-          g_warp = &warp; g_lane = l;
-          fn(args...);
-        });
-      }
-      for (auto& t : lanes) t.join();
-    }
-  }
-}
-}  // namespace emu
-"""
-
-LAUNCH = re.compile(r"(multistrain_tsit5(?:_2d)?_kernel<A, K, T>)<<<blocks, threads, 0, stream>>>\(")
 DAYS = 3.0
 OTHER = dict(r0s=(2.0, 2.5), tinf=(7.0, 6.0), tlat=(3.0, 2.5), twane=(60.0, 80.0), demo=(0.4, 0.4, 0.2))
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """Both sources built for the host, with the CUDA pieces emulated."""
-    cxx = shutil.which("g++")
-    if cxx is None:
+    """Both sources built for the host, with the CUDA pieces emulated
+    (``cuda_emulation.py``)."""
+    if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the host emulation")
-    out = tmp_path_factory.mktemp("team_emulation")
-    (out / "cuda_runtime.h").write_text(SHIM)
-    (out / _build.HEADER_NAME).write_text(_build.tableau_header())
-    loaded = {}
-    for name in ("multistrain_tsit5", "multistrain_tsit5_2d"):
-        text, n = LAUNCH.subn(r"emu::launch(blocks, threads, \1, ", (_build.SRC_DIR / f"{name}.cu").read_text())
-        assert n == 1, f"{name}.cu: the kernel launch is not where the emulation expects it"
-        src = out / f"{name}.cpp"
-        src.write_text(text)
-        lib = out / f"lib{name}.so"
-        subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
-                        "-I", str(out), "-I", str(_build.SRC_DIR), "-o", str(lib), str(src)],
-                       check=True, capture_output=True, text=True)
-        fn = getattr(ctypes.CDLL(str(lib)), f"dynode_{name}")
-        fn.argtypes, fn.restype = _build.argtypes()[f"dynode_{name}"], ctypes.c_int
-        loaded[name] = fn
-    return loaded
+    return {name: getattr(cuda_emulation.build(name, (_build.SRC_DIR / f"{name}.cu").read_text(),
+                                               tmp_path_factory.mktemp(name),
+                                               {f"dynode_{name}": _build.argtypes()[f"dynode_{name}"]}),
+                          f"dynode_{name}")
+            for name in ("multistrain_tsit5", "multistrain_tsit5_2d")}
 
 
 def _inputs(shape, batch):
