@@ -190,6 +190,18 @@ builds; Triton's JIT), then:
     instantiation it prints the kernel's time (CUDA events), bound, share
     of the bound, launches, registers and spills. Phase 18 takes
     ``SHAPES_BUDGET_S`` or less, its nvcc round apart.
+19. runs every example of ``examples_torch/`` on the card through its
+    ``run`` functions at the example's widths (``examples_phase``'s
+    docstring has each check and cut): (a) the eight simulation examples
+    at their own settings, each against the same call on CPU tensors; (b)
+    ``ensemble_scenarios``' 4,096 members through kernel #2, held against
+    its plain version on 1,024; (c) ``seip_forecast``'s 32,768 members
+    through kernel #5 (bf16, packed), held against its plain version, its
+    bands against ``numpy.quantile`` and its median against the data; (d)
+    every fit's log density and gradient, card against CPU, a sampling call
+    at the example's widths with its counts cut, and the wall of one of its
+    gradients and that extrapolated to the example's own counts. Phase 19
+    takes ``EXAMPLES_BUDGET_S`` or less.
 
 The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -198,6 +210,7 @@ exits non-zero and prints no result. It imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -273,7 +286,7 @@ SLICE_CHEES = (8, 8)  # and its ChEES warmup and draws (bench: 200 + 400), then 
 FORECAST_QS = (0.05, 0.25, 0.5, 0.75, 0.95)
 TOL_BANDS = 1e-6  # member_quantiles on the card vs numpy.quantile on the host: max |d| / max |ref|
 SVI_STARTS = 1024  # phase 16 (c): bench_nuts.py's bench_svi width
-SVI_STEPS = 12  # of its 300, eager (the generic model's potential is not graph-captured): (c) well inside 90 s
+SVI_STEPS = 2  # of its 300, eager (the generic model's potential is not graph-captured); 12 before phase 19 came
 SVI_SAMPLES = 2000  # Predictive(guide, params, num_samples=...), as bench_svi
 SVI_CHECK = (4, 3, 4)  # starts, steps, days: the card against the CPU in float64
 MIN_FINITE_ELBO = 0.99  # share of starts whose final ELBO is finite
@@ -298,7 +311,7 @@ TOL_MS_STIFF = 2e-5  # max |d| / max |ref| per compartment
 GRAD_DAYS = 30  # the gradient's horizon through TRBDF2, at a constant dt = DT (central differences see the same grid)
 STIFF_ENSEMBLE, STIFF_PICK = 4096, 16  # bench_nuts.py's chain width; members held to single-member solves
 STIFF_ENSEMBLE_DAYS = 30  # (b) and its split in (d): cut from STIFF_DAYS to hold phase 17's budget on slower hosts
-MS_STIFF_DAYS = 100  # (a)'s multi-strain TRBDF2 solve: cut from DAYS for the same reason
+MS_STIFF_DAYS = 50  # (a)'s multi-strain TRBDF2 solve: cut from DAYS for the same reason (100 before phase 19 came)
 TOL_STIFF_MEMBER = 1e-5
 RAGGED_ADAPTIVE = 2 * 32800  # 32,800 members a shard: not a multiple of block_b 64
 TOL_RAGGED = TOL_BF16  # a ragged split of the adaptive kernel against the unsplit one, bf16 c-row saves (the main
@@ -317,6 +330,47 @@ SHAPES_BUDGET_S = 180.0  # phase 18's time on the card, its nvcc round apart
 SEIP_SHAPES = {"default": (4, 4, 3, 4, 2, 0), "second": (2, 2, 3, 3, 1, 1)}  # (A, J, K, M, L, seasonal) of (a)
 MS_SHAPE = (4, 3)  # (b)
 LANE_ADAPTIVE = dict(steps_per_save=3)  # (c): Tsit5 at the default rtol 1e-5, atol 1e-6 takes 1-2 steps a day
+# phase 19: the examples of examples_torch/, run on the card through their run functions
+EXAMPLES_BUDGET_S = 240.0  # phase 19's time on the card
+EXAMPLE_SIMULATIONS = ("sir", "sir_age_stratified", "sir_age_risk_stratified", "seirs", "seirs_seasonal_forcing",
+                       "seirs_multi_strain_age_stratified", "seip", "seirs_stiff_waning")
+EXAMPLE_CHECK = 1024  # (b): the ensemble's first members held against kernel #2's plain version
+#: (d): each fit's sampling call at the example's widths, its counts cut to
+#: hold the gate, then its tree depth (the example's own in the docstring),
+#: over a fit window of ``EXAMPLE_FIT_DAYS`` days
+FIT_CUTS = {
+    "ensemble_scenarios": dict(warmup=0, samples=1, max_tree_depth=1),
+    "hierarchical_strains": dict(warmup=0, samples=1, max_tree_depth=1),
+    "seip_fit": dict(warmup=1, samples=1, max_num_steps=1),  # MCMCProcess: num_warmup > 0
+    "sir_infer_parameters": dict(warmup=1, samples=1, max_tree_depth=1, svi_iterations=1),
+    "model_selection": dict(warmup=1, samples=2, max_tree_depth=1),
+    "svi_multistart": dict(iterations=1, draws=1, burn=0),
+}
+EXAMPLE_FIT_DAYS = 5  # (d): the sampling calls' and the card-vs-CPU log densities' fit window
+#: (d): the name of each fit's window in its counts
+FIT_WINDOW = {"ensemble_scenarios": "fit_days", "hierarchical_strains": "duration", "seip_fit": "fit_days",
+              "sir_infer_parameters": "tf_fit", "model_selection": "tf", "svi_multistart": "tf_fit"}
+#: (d): per sampler of each fit: (its stage in the run's walls, what, the
+#: width of its bank, the example's own transitions or steps, gradients
+#: each at most; None: as many as the cut run took, which a zero-warmup
+#: ChEES bank keeps from its warm start)
+FIT_OWN = {
+    "ensemble_scenarios": [("fit", "NUTS", 64, 150 + 150, 2**6 - 1)],
+    "hierarchical_strains": [("fit", "NUTS", 16, 300 + 300, 2**10 - 1)],
+    "seip_fit": [("fit", "ChEES", 256, 100 + 100, 64)],
+    "sir_infer_parameters": [("mcmc", "NUTS", 1, 500 + 100, 2**10 - 1), ("svi", "SVI", 1, 500, 1)],
+    "model_selection": [("fits", "NUTS, two fits", 1, 2 * (400 + 200), 2**8 - 1)],
+    "svi_multistart": [("svi", "SVI", 64, 500, 1), ("chees", "ChEES, 0 warmup", 256, 24, None)],
+}
+#: (d): the log density's positions (constrained), card against CPU in float64
+FIT_POSITIONS = {
+    "ensemble_scenarios": {"r0_scales": [1.05, 0.97, 1.02]},
+    "hierarchical_strains": {"mu": 1.05, "tau": 0.2, "r0_scale": [0.9, 1.0, 1.2]},
+    "seip_fit": {"beta_scales": [1.05, 0.95]},
+    "sir_infer_parameters": {"strains_0_r0": 2.1, "strains_0_infectious_period": 6.5},
+    "model_selection poisson": {"strains_0_r0": 2.1, "strains_0_infectious_period": 6.5},
+    "model_selection negbin": {"strains_0_r0": 2.1, "strains_0_infectious_period": 6.5, "concentration": 3.5},
+}
 
 
 def shape_units() -> list:
@@ -2134,6 +2188,333 @@ def shapes_phase(dev, smi: str, build_wall) -> dict:
     return out
 
 
+def example_module(name: str):
+    """``examples_torch/<name>.py`` as a module."""
+    import importlib
+
+    path = str(REPO / "examples_torch")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
+
+
+def fit_models(name: str, mod, device, days: int, dtype) -> list:
+    """(label, model, keyword arguments) of fit ``name``'s model(s) on
+    ``device`` in ``dtype`` over a fit window of ``days``, the data made
+    on the CPU as the example makes them."""
+    import torch
+
+    cpu = torch.device("cpu")
+    if name in ("ensemble_scenarios", "hierarchical_strains"):
+        days = days if name == "ensemble_scenarios" else float(days)
+        (obs,) = mod.fit_problem(cpu, days, dtype)[1].values()
+        return [(name, *mod.fit_problem(device, days, dtype, obs=obs))]
+    if name == "seip_fit":
+        obs = mod.problem(cpu, dtype=dtype, fit_days=days).kwargs["obs_data"]
+        prob = mod.problem(device, dtype=dtype, obs=obs, fit_days=days)
+        return [(name, prob.model, prob.kwargs)]
+    if name in ("sir_infer_parameters", "svi_multistart"):
+        m = mod if name == "sir_infer_parameters" else example_module("sir_infer_parameters")
+        return [(name, m.model, dict(config=m.get_config(dtype, device), tf=days,
+                                     obs_data=m.observed(cpu, days, dtype).to(device)))]
+    obs = mod.synthetic_counts(cpu, days, dtype).to(device)  # model_selection: both models, the same counts
+    return [(f"{name} {k}", m, dict(config=mod.get_config(dtype, device), tf=days, obs_data=obs))
+            for k, m in mod.MODELS.items()]
+
+
+def bank_gradient_s(model, kwargs, width: int, dev) -> float:
+    """Wall seconds of one potential-and-gradient call of ``model`` over a
+    bank of ``width`` chains (or SVI starts) on ``dev``, as ``MCMC`` builds
+    it for a model with no batched potential: ``torch.func.vmap`` of the
+    flat potential's ``grad_and_value``, at positions drawn from the prior."""
+    import torch
+
+    from dynode_tpu_torch.infer import util
+    from dynode_tpu_torch.infer.mcmc import generic_pot_and_grad
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tr = util.get_model_trace(model, gen, **kwargs)
+    transforms = util.get_transforms(tr)
+    u0 = util.unconstrain_sample(transforms, util.initialize_latents(tr, gen, util.init_to_median))
+    flat, _, unravel = util.flatten_potential(util.make_potential_fn(model, (), kwargs, transforms), u0)
+    bank = util.initialize_latents(tr, gen, util.init_to_sample, num_chains=width)
+    z = unravel.ravel(util.unconstrain_sample(transforms, bank), batch_dims=1).to(dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pe, grad = generic_pot_and_grad(flat)(z)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(pe).all() and torch.isfinite(grad).all()), "(d) a non-finite bank gradient")
+    return time.perf_counter() - t
+
+
+def log_density_card_vs_cpu(name: str, mod, dev) -> list:
+    """Fit ``name``'s joint log density and its gradient at
+    ``FIT_POSITIONS`` over ``EXAMPLE_FIT_DAYS`` on the card and on CPU
+    tensors in float64: per model, (label, max rel err of the value and
+    every gradient, card s, CPU s, the log density)."""
+    import torch
+
+    from dynode_tpu_torch.infer.util import log_density
+
+    got = {}
+    for where in (torch.device("cpu"), dev):
+        for label, model, kwargs in fit_models(name, mod, where, EXAMPLE_FIT_DAYS, torch.float64):
+            pos = {k: torch.tensor(v, dtype=torch.float64, device=where, requires_grad=True)
+                   for k, v in FIT_POSITIONS[label].items()}
+            t = time.perf_counter()
+            lp = log_density(model, (), kwargs, pos)[0]
+            grads = torch.autograd.grad(lp, list(pos.values()))
+            vals = [lp.detach().cpu().reshape(1), *(g.cpu().reshape(-1) for g in grads)]
+            got[(label, where.type)] = (vals, time.perf_counter() - t)
+    rows = []
+    for label in dict.fromkeys(k[0] for k in got):
+        (cpu_vals, cpu_s), (card_vals, card_s) = got[(label, "cpu")], got[(label, dev.type)]
+        err = max(float((c - w).abs().max() / w.abs().max()) for c, w in zip(card_vals, cpu_vals))
+        rows.append((label, err, card_s, cpu_s, float(cpu_vals[0][0])))
+    return rows
+
+
+@contextlib.contextmanager
+def counting_gradients():
+    """Count the calls of every generic (``torch.func.vmap``) potential and
+    gradient that ``MCMC`` builds inside the block: one a leapfrog or
+    initial evaluation of the whole bank."""
+    from dynode_tpu_torch.infer import mcmc
+
+    calls = [0]
+    plain = mcmc.generic_pot_and_grad
+
+    def counted(flat_potential):
+        pot_and_grad = plain(flat_potential)
+
+        def call(zb):
+            calls[0] += 1
+            return pot_and_grad(zb)
+
+        return call
+
+    mcmc.generic_pot_and_grad = counted
+    try:
+        yield calls
+    finally:
+        mcmc.generic_pot_and_grad = plain
+
+
+def examples_phase(dev, smi: str) -> dict:
+    """Phase 19: every example of ``examples_torch/`` on the card, through
+    its ``run`` functions at the example's widths (non-FAST).
+
+    (a) The eight simulation examples at their own settings, in float64
+    (the examples' ``--float64``), each against the same call on CPU
+    tensors within ``TOL_CARD_CPU`` (phase 13's float64 bound) over every
+    array it plots, the step counts equal. Not in float32, the examples'
+    own type: there an adaptive solve's dt follows error norms a few
+    float32 ulps wide, which the card and the CPU round apart, so card and
+    CPU differ by up to 2.1e-5 (the multi-strain example), above phase 13's
+    float32 bound of 1e-5, as float32 differs from float64 by up to 6.7e-5
+    on either (my chip runs of this phase, PR 13).
+    (b) ``ensemble_scenarios``: 4,096 members over 200 days through kernel
+    #2 (launches counted), the first ``EXAMPLE_CHECK`` members against the
+    plain version within ``TOL_F32``. (c) ``seip_forecast``: (d)'s
+    ``seip_fit`` draws resampled to 32 x 1,024 = 32,768 members through
+    kernel #5 over 160 days (C in bf16, the packed layout; launches
+    counted), held against its plain version at that width with phase
+    12's per-block gate (``MIN_SAME`` of the blocks with the plain
+    version's decisions, ``TOL_BF16``), the bands against
+    ``numpy.quantile`` of the same daily incidence on the host
+    (``TOL_BANDS``), no exhausted interval, and the example's own check:
+    the median's correlation with the data above 0.8. (d) Every fit:
+    its model's joint log density and gradient at ``FIT_POSITIONS`` on the
+    card against CPU tensors in float64 (``TOL_CARD_CPU``), over a fit
+    window of ``EXAMPLE_FIT_DAYS`` days (the CPU side is eager; phase 15
+    (d) cuts its window so too); then its ``run`` at the example's widths
+    (chains, starts) in float32 over that window, with the counts cut and
+    the tree depth only after them (``FIT_CUTS``; the example's own in
+    brackets): ``ensemble_scenarios`` NUTS 0 warmup + 1 draw (150 + 150),
+    depth 1 (6), 64 chains, its fit window 5 days (100);
+    ``hierarchical_strains`` NUTS 0 + 1 (300 + 300), depth 1 (10), 16
+    chains, 5 days (120); ``seip_fit`` ChEES 1 + 1 (100 + 100;
+    ``MCMCProcess`` takes at least one warmup step), 1 leapfrog a
+    transition (up to 64), 256 chains, 5 days (100);
+    ``sir_infer_parameters`` NUTS 1 + 1 (500 + 100), depth 1 (10), SVI 1
+    step (500), its predictive draws as they are (1,000), 5 days (100);
+    ``model_selection`` NUTS 1 + 2 (400 + 200) for each of its two fits,
+    depth 1 (8), then ``loo`` and ``compare``, 5 days (100);
+    ``svi_multistart`` SVI 1 step (500) at 64 starts, then 1 draw (24) of
+    its zero-warmup ChEES bank of 256 chains, 5 days (100). Every draw
+    finite. Per sampler it prints that run's transitions (or SVI steps),
+    its gradient calls (counted) and wall, the wall of one gradient of the
+    bank at the example's own width and fit window (the model under
+    ``torch.func.vmap``, as ``MCMC`` maps it; an SVI step is one such
+    gradient over the starts), and that times the example's own counts:
+    the extrapolated wall (at most, for the samplers whose leapfrogs a
+    transition adapt). The examples' own drift and ranking asserts need
+    their own counts and are not run here. Phase 19 takes
+    ``EXAMPLES_BUDGET_S`` or less.
+    Returns the launches of kernels #2 and #5 on this path.
+    """
+    import torch
+
+    from dynode_tpu_torch.ops import multistrain as ms
+    from dynode_tpu_torch.ops import seip as tsp
+
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    print(f"phase 19: the examples of examples_torch/ on the card, through their run functions [{smi}]")
+
+    # (a) the simulation examples in float64, card against CPU
+    for name in EXAMPLE_SIMULATIONS:
+        mod = example_module(name)
+        t = time.perf_counter()
+        card = mod.run(dev, dtype=torch.float64)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        host = mod.run(cpu, dtype=torch.float64)
+        cpu_s = time.perf_counter() - t
+        errs = {}
+        for key, want in host.items():
+            got = card[key]
+            if isinstance(want, torch.Tensor) and want.is_floating_point():
+                check(got.device.type == dev.type and got.dtype == torch.float64, f"(a) {name} {key} left the card")
+                check(bool(torch.isfinite(got).all()), f"(a) {name} {key}: non-finite")
+                errs[key] = float((got.cpu() - want).abs().max() / want.abs().max())
+            else:
+                check(got == want, f"(a) {name} {key}: {got} on the card, {want} on the CPU")
+        worst = max(errs, key=errs.get)
+        print(f"  (a) {name}: card {card_s:.2f} s, CPU {cpu_s:.2f} s, float64; {len(errs)} arrays, max rel err "
+              f"{errs[worst]:.3e} ({worst}; tol {TOL_CARD_CPU:.0e}) [{smi}]")
+        check(errs[worst] <= TOL_CARD_CPU, f"(a) {name}: card vs CPU rel err {errs[worst]:.3e}")
+    print(f"      (a) took {time.perf_counter() - t_phase:.1f} s")
+
+    # (d) first: each fit's log density and gradient, card against CPU
+    for name in FIT_CUTS:
+        if name == "svi_multistart":
+            continue  # sir_infer_parameters' model
+        for label, err, card_s, cpu_s, lp in log_density_card_vs_cpu(name, example_module(name), dev):
+            print(f"  (d) {label}: log density {lp:.6f} and its gradient, float64, card {card_s:.2f} s, CPU "
+                  f"{cpu_s:.2f} s: max rel err {err:.3e} (tol {TOL_CARD_CPU:.0e})")
+            check(err <= TOL_CARD_CPU, f"(d) {label}: log density card vs CPU rel err {err:.3e}")
+    print(f"      (a) and the log densities took {time.perf_counter() - t_phase:.1f} s")
+
+    def fit_run(name):
+        """The example's ``run`` at its widths with ``FIT_CUTS``' counts over
+        ``EXAMPLE_FIT_DAYS``; then, per sampler, the transitions (or SVI
+        steps) and gradient calls of that run, the wall of one gradient of
+        the bank at the example's own width and fit window, and the wall
+        extrapolated to the example's own counts."""
+        mod = example_module(name)
+        cut = FIT_CUTS[name]
+        with counting_gradients() as calls:
+            out = mod.run(dev, overrides={**cut, FIT_WINDOW[name]: EXAMPLE_FIT_DAYS})
+        own_days = mod.COUNTS[FIT_WINDOW[name]]
+        (_, model, kwargs), *_ = fit_models(name, mod, dev, own_days, torch.float32)
+        per_width = {}  # one gradient of the bank at each width the example's samplers use
+        for stage, what, width, own, each in FIT_OWN[name]:
+            if stage == "svi":
+                done = grads = cut.get("svi_iterations", cut.get("iterations"))
+            else:
+                done = cut["draws"] if stage == "chees" else (cut["warmup"] + cut["samples"])
+                done *= 2 if name == "model_selection" else 1
+                grads = calls[0]
+            if width not in per_width:
+                per_width[width] = bank_gradient_s(model, kwargs, width, dev)
+            per = per_width[width]
+            each = grads / done if each is None else each
+            total = per * own * each
+            print(f"  (d) {name} {what}, width {width}: {done} transitions or steps over {EXAMPLE_FIT_DAYS} days, "
+                  f"{grads} gradient calls, {out['walls'][stage]:.1f} s; one gradient of the bank over the "
+                  f"example's {own_days} days {per:.2f} s; at the example's own {own} x "
+                  f"{'at most ' if each > 1 and stage != 'chees' else ''}{each:.1f} gradients: {total:,.0f} s "
+                  f"({total / 3600:.2f} h) [{smi}]")
+        return out
+
+    # (b) ensemble_scenarios: the ensemble through kernel #2, then its fit
+    launches = {}
+    torch.cuda.synchronize()
+    ms.launch_multistrain_tsit5.launches = 0
+    out = fit_run("ensemble_scenarios")
+    launches["multistrain_tsit5"] = ms.launch_multistrain_tsit5.launches
+    mod = example_module("ensemble_scenarios")
+    n = mod.COUNTS["ensemble"]
+    base, y0 = mod.model_parts(dev)
+    scales = out["r0_scales"][:EXAMPLE_CHECK]
+    plain = ms.ensemble_solve_reference(y0, base.beta[None, :] * scales[:, None], base.sigma, base.gamma,
+                                        base.omega, base.contact_matrix, batch=EXAMPLE_CHECK,
+                                        duration=float(mod.COUNTS["duration"]), dt=0.5)
+    _, err = rel_err(out["saves"][..., :EXAMPLE_CHECK], plain)
+    peak = out["peak_day"].float().quantile(torch.tensor([0.05, 0.5, 0.95], device=dev)).tolist()
+    print(f"  (b) ensemble_scenarios: {n} members, {mod.COUNTS['duration']} days through kernel #2 "
+          f"(multistrain_tsit5, launches {launches['multistrain_tsit5']}): {out['walls']['ensemble'] * 1e3:.1f} ms "
+          f"wall; peak day 5/50/95% {peak}; the first {EXAMPLE_CHECK} members against the plain version: max rel "
+          f"err {err:.3e} (tol {TOL_F32:.0e}) [{smi}]")
+    check(out["saves"].shape[-1] == n and bool(torch.isfinite(out["saves"]).all()), "(b) non-finite ensemble")
+    check(launches["multistrain_tsit5"] > 0, "kernel #2 did not launch on ensemble_scenarios' path")
+    check(err <= TOL_F32, f"(b) kernel #2 vs plain: rel err {err:.3e}")
+    check(bool(torch.isfinite(out["posterior"]).all()), "(d) ensemble_scenarios: non-finite draws")
+    del out, plain
+
+    # (d) the other fits at their widths, counts cut
+    fits = {}
+    for name in ("hierarchical_strains", "seip_fit", "sir_infer_parameters", "model_selection", "svi_multistart"):
+        fits[name] = out = fit_run(name)
+        draws = {"hierarchical_strains": lambda o: o["r0_scale"], "seip_fit": lambda o: o["beta_scales"],
+                 "sir_infer_parameters": lambda o: o["mcmc"].get_samples()["strains_0_r0"],
+                 "model_selection": lambda o: o["fits"]["negbin"].get_samples()["concentration"],
+                 "svi_multistart": lambda o: o["chees_r0"]}[name](out)
+        check(bool(torch.isfinite(draws).all()), f"(d) {name}: non-finite draws")
+        if name == "model_selection":
+            print(f"      model_selection at the cut counts: ranking {list(out['table'])}, elpd "
+                  f"{[round(s.elpd, 2) for s in out['scores'].values()]}")
+    print(f"      (a), (b) and (d) took {time.perf_counter() - t_phase:.1f} s")
+
+    # (c) seip_forecast: the fit's draws through kernel #5 at 32,768 members
+    forecast = example_module("seip_forecast")
+    draws = fits.pop("seip_fit")["beta_scales"]
+    fits.clear()
+    torch.cuda.synchronize()
+    tsp.launch_seip_bs3.launches = 0
+    out = forecast.run(dev, draws=draws)
+    launches["seip_bs3"] = tsp.launch_seip_bs3.launches
+    bank, c, stats = out["bank"], out["c"], out["stats"]
+    width, days = bank.shape[1], out["fit_days"] + forecast.horizon(False)
+    prob = out["problem"]
+    plain, plain_stats = tsp.seip_solve_adaptive_reference(
+        prob.y0, prob.base, bank.float(), duration=float(days), rtol=1e-4, atol=1e-3, dt0=0.125, steps_per_save=8,
+        block_b=tsp.SEIP_ADAPTIVE_BLOCK, save=(3,), dtype=torch.float32)
+    same = torch.ones_like(stats["n_accepted"], dtype=torch.bool)
+    for key in stats:
+        same &= stats[key] == plain_stats[key]
+    members = tsp.unpack_members(c) if c.device.type == "cuda" else c  # the card's branch packs
+    member_abs = (members.float() - plain[0]).abs().flatten(0, -2).amax(dim=0)
+    block_of = torch.arange(width, device=dev) // tsp.SEIP_ADAPTIVE_BLOCK
+    block_abs = torch.zeros(same.shape[0], device=dev).scatter_reduce_(0, block_of, member_abs, "amax")
+    block_rel = block_abs / float(plain[0].abs().max())
+    frac = float(same.float().mean())
+    rel_same, rel_all = float(block_rel[same].max()), float(block_rel.max())
+    inc = torch.diff(torch.sum(c, dim=(1, 2, 3, 4), dtype=torch.float32), dim=0)
+    host = np.quantile(inc.reshape(inc.shape[0], -1).cpu().numpy(), forecast.QS, axis=1)
+    band_err = float(np.abs(out["bands"].cpu().numpy() - host).max() / np.abs(host).max())
+    print(f"  (c) seip_forecast: {draws.shape[0]} draws of (d)'s {EXAMPLE_FIT_DAYS}-day seip_fit resampled to {width} members, kernel #5 "
+          f"(seip_bs3, launches {launches['seip_bs3']}) over {days} days, C bf16 packed {tuple(c.shape)}: forecast "
+          f"wall {out['walls']['forecast'] * 1e3:.1f} ms; exhausted {int(stats['exhausted_intervals'].sum())}; "
+          f"against the plain version: {frac:.4f} of {same.numel()} blocks with its decisions (gate {MIN_SAME}), "
+          f"max rel err {rel_same:.3e} there, {rel_all:.3e} over all (tol {TOL_BF16:.0e}); bands "
+          f"{tuple(out['bands'].shape)} against numpy.quantile: max rel err {band_err:.3e} (tol {TOL_BANDS:.0e}); "
+          f"median-vs-data correlation {out['correlation']:.4f} (gate {forecast.MIN_CORRELATION}) [{smi}]")
+    check(width == 32 * tsp.BLOCK and c.dtype == torch.bfloat16, "(c) not the card's branch of seip_forecast")
+    check(launches["seip_bs3"] > 0, "kernel #5 did not launch on seip_forecast's path")
+    check(frac >= MIN_SAME and rel_same <= TOL_BF16 and rel_all <= TOL_BF16, "(c) kernel #5 vs its plain version")
+    check(band_err <= TOL_BANDS, f"(c) bands vs numpy.quantile: rel err {band_err:.3e}")
+    check(out["correlation"] > forecast.MIN_CORRELATION, f"(c) correlation {out['correlation']:.4f}")
+    del out, plain, c
+
+    phase_s = time.perf_counter() - t_phase
+    print(f"  phase 19: {phase_s:.1f} s (gate {EXAMPLES_BUDGET_S:.0f} s); launches {launches}")
+    check(phase_s <= EXAMPLES_BUDGET_S, f"phase 19 took {phase_s:.1f} s, over its {EXAMPLES_BUDGET_S:.0f} s")
+    return launches
+
+
 def median_tree_ms(fn):
     """:func:`median_ms` of an entry whose result is a tree of tensors
     (saves and a dict of statistics): (median ms, the last result); the
@@ -2944,6 +3325,9 @@ def main() -> int:
     shape_rows = shapes_phase(dev, smi, shape_wall.result)
     shape_builds.shutdown()
 
+    # ---- 19. the examples of examples_torch/ ------------------------------------
+    example_launches = examples_phase(dev, smi)
+
     # ---- the kernels' line: counts of this run's work and the card's bound ---
     obs_attempts = int((obs_stats["n_accepted"] + obs_stats["n_rejected"]).sum())
     obs_bytes = 8 * 2  # a member's save slot: 6 c rows + 2 zero rows, bf16
@@ -3003,6 +3387,8 @@ def main() -> int:
         kernels[list(meta).index(name)]["mesh_path_launches"] = n
     for name, row in shape_rows.items():  # phase 18's other shapes
         kernels[list(meta).index(name)].update(row)
+    for name, n in example_launches.items():  # phase 19's examples
+        kernels[list(meta).index(name)]["examples_path_launches"] = n
     kernels[list(meta).index("rk_solve_adaptive")].update(adaptive_facts)
     kernels[list(meta).index("multistrain_tsit5")].update(row_facts)
     kernels[list(meta).index("multistrain_tsit5_2d")].update(facts_2d)

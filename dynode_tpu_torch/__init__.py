@@ -14,7 +14,8 @@ processes ``MCMCProcess`` and ``SVIProcess``, state files, model
 comparison, forecast bands, diagnostics), the stiff solvers (:mod:`.ode`'s
 ``TRBDF2``, ``ImplicitEuler``), meshes of devices and process groups
 (:mod:`.parallel`) and the utilities (:mod:`.utils`: logging, epiweeks,
-profiling, the kernels' build directory). Constructors put
+profiling, the kernels' build directory, the plotting helpers of
+``utils.vis_utils``). Constructors put
 their tensors on the card unless given ``device="cpu"``. The package imports ``torch`` and never ``jax`` or
 ``pydantic``.
 """
@@ -84,6 +85,7 @@ from .typing import (
 )
 from .utils import (
     CustomLogFormatter,
+    VisualizationError,
     base_equation,
     conditional_knots,
     date_to_epi_week,
@@ -95,10 +97,17 @@ from .utils import (
     identify_distribution_indexes,
     log_decorator,
     logger,
+    plot_checkpoint_inference_correlation_pairs,
+    plot_mcmc_chains,
+    plot_model_overview_subplot_matplotlib,
+    plot_posterior_density,
+    plot_prior_distributions,
+    plot_violin_plots,
     sim_day_to_date,
     sim_day_to_epiweek,
     use_logging,
     vectorize_objects,
+    vis_utils,
 )
 from .ode import diffeqsolve
 from .ops import (
@@ -210,12 +219,9 @@ __all__ = [
 
 
 def __getattr__(name):
-    # the module alias the JAX package exports, resolved lazily; the
-    # plotting names stay absent until the plotting utilities are ported
+    # the module alias the JAX package exports, resolved lazily
     if name == "log":
         from .utils import log as _log_module
 
         return _log_module
-    if name in utils.VIS_NAMES:
-        return getattr(utils, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

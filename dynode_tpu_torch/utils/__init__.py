@@ -1,6 +1,7 @@
 """Helpers of the port: logging, dates and epiweeks, the vaccination-uptake
 splines, profiling and solver statistics, where the kernels are built, and
-the object-to-tensor and posterior-dict utilities."""
+the object-to-tensor and posterior-dict utilities, and the plotting helpers
+of :mod:`.vis_utils` (which import matplotlib only when they draw)."""
 
 from .compilation_cache import compilation_cache_dir, enable_compilation_cache
 from .custom_log_formatter import CustomLogFormatter
@@ -15,6 +16,16 @@ from .utils import (
     flatten_list_parameters,
     identify_distribution_indexes,
     vectorize_objects,
+)
+from . import vis_utils
+from .vis_utils import (
+    VisualizationError,
+    plot_checkpoint_inference_correlation_pairs,
+    plot_mcmc_chains,
+    plot_model_overview_subplot_matplotlib,
+    plot_posterior_density,
+    plot_prior_distributions,
+    plot_violin_plots,
 )
 
 __all__ = [
@@ -41,24 +52,12 @@ __all__ = [
     "flatten_list_parameters",
     "drop_keys_with_substring",
     "identify_distribution_indexes",
-]
-
-#: the plotting names of the JAX package's ``utils.vis_utils``
-VIS_NAMES = (
+    "vis_utils",
+    "VisualizationError",
     "plot_model_overview_subplot_matplotlib",
     "plot_checkpoint_inference_correlation_pairs",
     "plot_mcmc_chains",
     "plot_posterior_density",
     "plot_prior_distributions",
     "plot_violin_plots",
-    "vis_utils",
-)
-
-
-def __getattr__(name):
-    if name in VIS_NAMES:
-        raise AttributeError(
-            f"{name!r}: the plotting utilities (vis_utils) are not ported yet; they come with the "
-            "examples (ROADMAP.md, Queue 1 #15b)"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+]

@@ -116,20 +116,45 @@ def test_seip_slice_matches_jax_path(adaptive):
 
 
 def test_import_leaves_jax_out():
-    """``import dynode_tpu_torch`` (every module of it) loads no JAX."""
+    """``import dynode_tpu_torch`` (every module of it) and every module of
+    ``examples_torch/`` load no JAX and nothing of ``dynode_tpu``."""
     code = (
         "import sys, pkgutil, importlib, dynode_tpu_torch\n"
         "for m in pkgutil.walk_packages(dynode_tpu_torch.__path__, 'dynode_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "sys.path.insert(0, 'examples_torch')\n"
+        "for p in sorted(__import__('pathlib').Path('examples_torch').glob('*.py')):\n"
+        "    importlib.import_module(p.stem)\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
+        "assert not [k for k in sys.modules if k.split('.')[0] == 'dynode_tpu'], 'dynode_tpu'\n"
         "assert 'triton' not in sys.modules\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    for path in (REPO / "dynode_tpu_torch").rglob("*.py"):
+    paths = [*(REPO / "dynode_tpu_torch").rglob("*.py"), *(REPO / "examples_torch").glob("*.py")]
+    assert len([p for p in paths if p.parent.name == "examples_torch"]) == 16
+    for path in paths:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
+        assert "import dynode_tpu\n" not in text and "from dynode_tpu " not in text, path
+        assert "from dynode_tpu." not in text and "import dynode_tpu." not in text, path
+
+
+def test_example_without_device_raises_without_a_card(tmp_path):
+    """An example given no ``--device`` asks for the card and raises where
+    there is none; it never drops to the CPU."""
+    code = (
+        "import runpy, sys, torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        f"sys.argv = ['sir.py']\n"
+        f"sys.path.insert(0, {str(REPO / 'examples_torch')!r})\n"
+        f"runpy.run_path({str(REPO / 'examples_torch' / 'sir.py')!r}, run_name='__main__')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "RuntimeError" in proc.stderr and "is_available() is False" in proc.stderr, proc.stderr[-2000:]
+    assert not list(tmp_path.iterdir())  # no result written
 
 
 def test_cuda_request_raises_without_card(monkeypatch):

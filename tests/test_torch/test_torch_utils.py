@@ -115,11 +115,12 @@ def test_package_exports():
     for name in ("use_logging", "logger", "log_decorator", "CustomLogFormatter", "enable_compilation_cache",
                  "date_to_epi_week", "sim_day_to_epiweek", "parallel"):
         assert hasattr(dynode_tpu_torch, name), name
-    for name in ("plot_violin_plots", "vis_utils"):
-        with pytest.raises(AttributeError, match="#15b"):
-            getattr(tu, name)
-    with pytest.raises(AttributeError, match="#15b"):
-        dynode_tpu_torch.plot_mcmc_chains
+    from dynode_tpu_torch.utils import vis_utils
+
+    assert tu.vis_utils is vis_utils and tu.plot_violin_plots is vis_utils.plot_violin_plots
+    assert dynode_tpu_torch.plot_mcmc_chains is vis_utils.plot_mcmc_chains
+    with pytest.raises(AttributeError):
+        tu.plot_nothing
 
 
 def test_solver_stats_and_assert_solved_match_jax():
