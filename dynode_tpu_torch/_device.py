@@ -116,15 +116,33 @@ def constant(host: torch.Tensor, device) -> torch.Tensor:
 
     On the CPU ``host`` itself; inside :func:`keep_constants`, the tensor
     its store holds for equal contents (copied on the first call);
-    otherwise a fresh copy.
+    otherwise a fresh copy. ``host`` must be a plain tensor, made outside
+    any ``torch.func`` transform (:func:`from_host`): inside one, a new
+    tensor has no storage the host can read. The copy is made outside the
+    transform too, so a kept tensor outlives it.
     """
     device = torch.device(device)
     if device.type == "cpu":
         return host
-    if not _STORES:
-        return host.to(device)
-    store = _STORES[-1]
-    key = (host.numpy().tobytes(), host.dtype, tuple(host.shape), str(device))
-    if key not in store:
-        store[key] = host.to(device)
-    return store[key]
+    with torch._C._DisableFuncTorch():
+        if not _STORES:
+            return host.to(device)
+        store = _STORES[-1]
+        key = (host.numpy().tobytes(), host.dtype, tuple(host.shape), str(device))
+        if key not in store:
+            store[key] = host.to(device)
+        return store[key]
+
+
+def from_host(values, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``values`` (numbers, nested sequences, a numpy array or a CPU tensor)
+    as a tensor on ``device``, in ``dtype`` when given.
+
+    The tensor is built on the host, outside any ``torch.func`` transform,
+    with the values ``torch.as_tensor(values, dtype=dtype)`` holds, and
+    placed by :func:`constant`: a call inside a CUDA-graph capture reads
+    the copy its warm-up kept, and never copies from the host.
+    """
+    with torch._C._DisableFuncTorch():
+        host = torch.as_tensor(values, dtype=dtype, device="cpu").detach()
+    return constant(host, device)

@@ -263,7 +263,8 @@ class mask(Messenger):
     def process_message(self, msg):
         """Apply this handler's effect to an incoming site message."""
         if msg["type"] == "sample":
-            m = torch.as_tensor(self.mask, dtype=torch.bool)
+            m = self.mask.to(torch.bool) if isinstance(self.mask, torch.Tensor) else \
+                _device.from_host(self.mask, "cpu", torch.bool)
             prev = msg.get("mask")
             msg["mask"] = m if prev is None else torch.logical_and(prev, m)
 
@@ -297,6 +298,15 @@ def _feasible_value(fn, value):
         return torch.zeros_like(value)
 
 
+def _on_card(x, device: torch.device):
+    """Host data (numpy, a list, a CPU tensor outside autograd) as a tensor
+    on ``device`` through :func:`~dynode_tpu_torch._device.from_host`, which
+    a CUDA-graph capture reads from its kept copy; anything else as it is."""
+    if isinstance(x, torch.Tensor) and (x.device.type != "cpu" or x.requires_grad):
+        return x
+    return _device.from_host(x, device)
+
+
 def weighted_log_prob(site, center=None):
     """A sample site's elementwise log-prob with mask/scale applied.
 
@@ -305,9 +315,15 @@ def weighted_log_prob(site, center=None):
     weighting. Masked entries never reach ``log_prob`` (double-where): the
     value is first replaced with an in-support fill, then the log-prob is
     zeroed, so NaN-encoded gaps poison neither the density nor its gradient.
+    Observed host data and masks of a site whose distribution lies on a
+    card go there without a copy inside a captured potential.
     """
     value = site["value"]
     m = site.get("mask")
+    device = _fn_device(site["fn"])
+    if device is not None and device.type != "cpu":
+        value = _on_card(value, device)
+        m = None if m is None else _on_card(m, device)
     if m is not None:
         m = m.to(torch.as_tensor(value).device)
         value = torch.where(m, torch.as_tensor(value), _feasible_value(site["fn"], value))

@@ -9,8 +9,9 @@ without pydantic; a refused value raises ``ValueError`` (pydantic's
 
 ``inference_prngkey`` is an int seed (default 8675314) or a
 ``torch.Generator``. JAX's persistent
-compilation cache (``_enable_cache_on_tpu``) has no counterpart: the port
-runs eagerly.
+compilation cache (``_enable_cache_on_tpu``) has no counterpart: on the
+card ``MCMC`` captures a CUDA graph of the potential per run, and SVI runs
+eagerly.
 """
 
 from typing import Dict

@@ -22,11 +22,21 @@ The potential and its gradient for the bank:
   meets a host sync or a host copy raises :class:`GraphCaptureError`; the
   runner never falls back to the eager call.
 - Otherwise the flat potential of the model is mapped over the chains with
-  ``torch.func.vmap(torch.func.grad_and_value(...))``, eagerly.
+  ``torch.func.vmap(torch.func.grad_and_value(...))`` (JAX's
+  ``jax.vmap(jax.value_and_grad(...))``). On a CUDA bank of a vectorized
+  run that map is captured into a :class:`GraphedPotential` at its first
+  call, one graph per run, width and device (one per shard device of a
+  mesh), and replayed at every later call of the run, as JAX jits it. The
+  graph is released when the run ends: it closes over this run's
+  arguments, so no cache keeps it. A capture that fails raises
+  :class:`GraphCaptureError`, as for a batched potential. The sequential
+  method and CPU tensors run the map eagerly.
 """
 
 import contextlib
+import inspect
 import math
+import time
 import traceback
 import warnings
 from collections import OrderedDict
@@ -93,9 +103,15 @@ def batched_pot_and_grad(batched_pot: Callable) -> Callable:
     return pot_and_grad
 
 
-def generic_pot_and_grad(flat_potential: Callable) -> Callable:
+def generic_pot_and_grad(flat_potential: Callable, graph_device: Optional[torch.device] = None) -> Callable:
     """``zb -> (pe, grad)`` of a per-chain flat potential, mapped over the
-    chains by ``torch.func.vmap`` of ``torch.func.grad_and_value``."""
+    chains by ``torch.func.vmap`` of ``torch.func.grad_and_value``.
+
+    With a CUDA ``graph_device`` the map is returned as a
+    :class:`GraphedPotential`: captured at its first call on that device,
+    replayed at every later one. Otherwise it runs eagerly. A wrapper of
+    this function that keeps the graph visible sets ``__wrapped__`` on
+    what it returns (:func:`inspect.unwrap` finds it)."""
     mapped = torch.func.vmap(torch.func.grad_and_value(flat_potential))
 
     def pot_and_grad(zb):
@@ -113,6 +129,8 @@ def generic_pot_and_grad(flat_potential: Callable) -> Callable:
             ) from err
         return pe.detach(), grad.detach()
 
+    if graph_device is not None and torch.device(graph_device).type == "cuda":
+        return GraphedPotential(pot_and_grad)
     return pot_and_grad
 
 
@@ -184,10 +202,19 @@ class GraphedPotential:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.constants: dict = {}
         self.replays = 0
+        #: the device of the last capture, and the walls of its warm-up and capture
+        self.device: Optional[torch.device] = None
+        self.warmup_s = self.capture_s = None
 
-    def capture(self, zb: torch.Tensor) -> None:
-        """Warm up on a side stream and capture the graph at ``zb``."""
+    def capture(self, zb: torch.Tensor):
+        """Warm up on a side stream and capture the graph at ``zb``.
+
+        Returns the warm-up's ``(pe, grad)``: the eager call's result, which
+        every replay equals. :attr:`warmup_s` and :attr:`capture_s` hold the
+        walls of the warm-up and of the capture (host clock, each ended by
+        a synchronize of the card)."""
         dev = zb.device
+        self.device = dev
         self.static_z = zb.detach().clone()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -195,9 +222,13 @@ class GraphedPotential:
         # made on whichever card was current at the first capture: each
         # graph gets a stream of its own card
         with torch.cuda.device(dev), _device.keep_constants(self.constants):
+            start = time.perf_counter()
             with torch.cuda.stream(side):
-                self.pot_and_grad(self.static_z)
+                warm = self.pot_and_grad(self.static_z)
             torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            self.warmup_s = time.perf_counter() - start
+            start = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
@@ -211,7 +242,10 @@ class GraphedPotential:
                     f"CUDA-graph capture of the potential failed at {_user_frame(first.__traceback__)}: {first}. "
                     "A captured potential must not sync the host; the sampler does not run it eagerly instead"
                 ) from err
+            torch.cuda.synchronize(dev)
+            self.capture_s = time.perf_counter() - start
         self.graph = graph
+        return warm
 
     def __call__(self, zb: torch.Tensor):
         if self.graph is None:
@@ -220,6 +254,13 @@ class GraphedPotential:
         self.graph.replay()
         self.replays += 1
         return self.static_pe.clone(), self.static_grad.clone()
+
+    def release(self) -> None:
+        """Free the graph, its static buffers and its kept constants (the
+        replay count stays); a later call captures anew."""
+        self.graph = None
+        self.static_z = self.static_pe = self.static_grad = None
+        self.constants = {}
 
 
 _EXEC_CACHE: "OrderedDict[tuple, dict]" = OrderedDict()
@@ -653,16 +694,23 @@ class MCMC:
         self.graph, self.graphs = None, []
 
         def bank_part(width, dev):
-            """The potential and gradient of ``width`` chains on ``dev``."""
+            """The potential and gradient of ``width`` chains on ``dev``:
+            graph-captured on a card unless the chains run one by one."""
+            graphed = dev.type == "cuda" and self.chain_method != "sequential"
             if batched is None:
-                if dev == device:
-                    return generic_pot_and_grad(flat_pot)
-                # the model's tensors go with the shard
-                moved = pytree.tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x,
-                                        (args, kwargs, centers))
-                pot = make_potential_fn(model, moved[0], moved[1], transforms, centers=moved[2])
-                return generic_pot_and_grad(flatten_potential(pot, u0)[0])
-            if dev.type == "cuda" and self.chain_method != "sequential":
+                pot = flat_pot
+                if dev != device:
+                    # the model's tensors go with the shard
+                    moved = pytree.tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x,
+                                            (args, kwargs, centers))
+                    pot = flatten_potential(make_potential_fn(model, moved[0], moved[1], transforms,
+                                                              centers=moved[2]), u0)[0]
+                part = generic_pot_and_grad(pot, dev if graphed else None)
+                graph = inspect.unwrap(part)
+                if isinstance(graph, GraphedPotential):
+                    self.graphs.append(graph)
+                return part
+            if graphed:
                 graph = graphed_potential(batched, width, D, dtype, dev,
                                           mesh=None if plan is None else (self.mesh.key(), self.chain_axis))
                 self.graphs.append(graph)
@@ -676,53 +724,59 @@ class MCMC:
             pot_and_grad = split_pot_and_grad(plan, parts)
         self.graph = self.graphs[0] if self.graphs else None
 
-        if z0s is not None:
-            # reject non-finite starting points: redraw the bad chains up to
-            # 20 times (21 validations bracket 20 redraw rounds)
-            for attempt in range(21):
-                pe0, g0 = pot_and_grad(z0s)
-                ok = torch.isfinite(pe0) & torch.all(torch.isfinite(g0), dim=-1)
-                if bool(ok.all()):
-                    break
-                if attempt == 20:
-                    bad = torch.where(~ok)[0].tolist()
-                    raise RuntimeError(
-                        "could not find finite initial potentials/gradients "
-                        f"for all chains after 20 redraws (bad chains: {bad})"
-                    )
-                z0s = torch.where(ok[:, None], z0s, flat_init_bank().to(device))
+        try:
+            if z0s is not None:
+                # reject non-finite starting points: redraw the bad chains up to
+                # 20 times (21 validations bracket 20 redraw rounds)
+                for attempt in range(21):
+                    pe0, g0 = pot_and_grad(z0s)
+                    ok = torch.isfinite(pe0) & torch.all(torch.isfinite(g0), dim=-1)
+                    if bool(ok.all()):
+                        break
+                    if attempt == 20:
+                        bad = torch.where(~ok)[0].tolist()
+                        raise RuntimeError(
+                            "could not find finite initial potentials/gradients "
+                            f"for all chains after 20 redraws (bad chains: {bad})"
+                        )
+                    z0s = torch.where(ok[:, None], z0s, flat_init_bank().to(device))
 
-        if self.progress_bar:
-            print(
-                f"[dynode_tpu_torch.MCMC] running {self.num_chains} chain(s) x "
-                f"({self.num_warmup} warmup + {self.num_samples} samples) on {device}..."
-            )
-        if isinstance(self.kernel, ChEES):
-            self.last_state, self._tuned, collected = self._run_chees(
-                pot_and_grad, D, dtype, device, z0s, draws, warm_start=warm_start
-            )
-        elif warm_start is not None:
-            prev_state, (inv_mass, chol, eps) = warm_start
-            # re-anchor the saved states on this run's potential function
-            pe, grad = pot_and_grad(prev_state.z)
-            state = prev_state._replace(potential=pe, grad=grad)
-            _, _, sample_step = self._nuts_parts(pot_and_grad, D, dtype, device, draws)
-            state, collected = self._sample(state, sample_step, (inv_mass, chol, eps))
-            collected["step_size"] = eps
-            self.last_state, self._tuned = state, (inv_mass, chol, eps)
-        elif self.chain_method == "sequential":
-            # one chain at a time, each a bank of one, from the one generator
-            outs = [
-                self._run_nuts(pot_and_grad, D, dtype, device, z0s[i : i + 1], draws, rescue=False)
-                for i in range(self.num_chains)
-            ]
-            self.last_state = type(outs[0][0])(*(torch.cat(xs) for xs in zip(*(o[0] for o in outs))))
-            self._tuned = tuple(torch.cat(xs) for xs in zip(*(o[1] for o in outs)))
-            collected = {k: torch.cat([o[2][k] for o in outs]) for k in outs[0][2]}
-        else:
-            self.last_state, self._tuned, collected = self._run_nuts(
-                pot_and_grad, D, dtype, device, z0s, draws, rescue=True
-            )
+            if self.progress_bar:
+                print(
+                    f"[dynode_tpu_torch.MCMC] running {self.num_chains} chain(s) x "
+                    f"({self.num_warmup} warmup + {self.num_samples} samples) on {device}..."
+                )
+            if isinstance(self.kernel, ChEES):
+                self.last_state, self._tuned, collected = self._run_chees(
+                    pot_and_grad, D, dtype, device, z0s, draws, warm_start=warm_start
+                )
+            elif warm_start is not None:
+                prev_state, (inv_mass, chol, eps) = warm_start
+                # re-anchor the saved states on this run's potential function
+                pe, grad = pot_and_grad(prev_state.z)
+                state = prev_state._replace(potential=pe, grad=grad)
+                _, _, sample_step = self._nuts_parts(pot_and_grad, D, dtype, device, draws)
+                state, collected = self._sample(state, sample_step, (inv_mass, chol, eps))
+                collected["step_size"] = eps
+                self.last_state, self._tuned = state, (inv_mass, chol, eps)
+            elif self.chain_method == "sequential":
+                # one chain at a time, each a bank of one, from the one generator
+                outs = [
+                    self._run_nuts(pot_and_grad, D, dtype, device, z0s[i : i + 1], draws, rescue=False)
+                    for i in range(self.num_chains)
+                ]
+                self.last_state = type(outs[0][0])(*(torch.cat(xs) for xs in zip(*(o[0] for o in outs))))
+                self._tuned = tuple(torch.cat(xs) for xs in zip(*(o[1] for o in outs)))
+                collected = {k: torch.cat([o[2][k] for o in outs]) for k in outs[0][2]}
+            else:
+                self.last_state, self._tuned, collected = self._run_nuts(
+                    pot_and_grad, D, dtype, device, z0s, draws, rescue=True
+                )
+        finally:
+            if batched is None:
+                # the generic graphs close over this run's arguments: none outlives it
+                for graph in self.graphs:
+                    graph.release()
         z = collected.pop("z")  # (chains, samples, D)
         self._collect(z, collected)
         if consensus_check:

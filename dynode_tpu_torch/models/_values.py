@@ -12,15 +12,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _device
+
 
 def f64(values, device: torch.device) -> torch.Tensor:
     """``values`` (a number, an array, a tensor, or a list of them) as one
-    float64 tensor on ``device``."""
+    float64 tensor on ``device``. Host values bound for the card go there
+    through :func:`~dynode_tpu_torch._device.from_host`, so a model that
+    builds its parameters inside a captured potential copies nothing from
+    the host."""
     if isinstance(values, torch.Tensor):
+        if values.device.type == "cpu" and torch.device(device).type != "cpu" and not values.requires_grad:
+            return _device.from_host(values, device, torch.float64)
         return values.to(device=device, dtype=torch.float64)
     if isinstance(values, (list, tuple)) and any(isinstance(v, torch.Tensor) for v in values):
         return torch.stack([f64(v, device) for v in values])
-    return torch.as_tensor(np.asarray(values, np.float64), device=device)
+    return _device.from_host(np.asarray(values, np.float64), device)
 
 
 def ordered_sum(x: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from .. import _device
 from .solvers import _bcast
 
 
@@ -65,7 +66,7 @@ class ConstantStepSize(AbstractStepSizeController):
         """The configured constant ``dt``."""
         if dt0 is None:
             raise ValueError("ConstantStepSize requires an explicit dt0")
-        return torch.as_tensor(dt0, dtype=t0.dtype, device=t0.device)
+        return _device.scalar(dt0, t0.dtype, t0.device)
 
     def adapt(self, err_norm, dt, solver):
         """Always accept; ``dt`` never changes."""
@@ -100,7 +101,7 @@ class PIDController(AbstractStepSizeController):
     def init_dt(self, term, solver, t0, t1, y0, f0, args, dt0):
         """The Hairer initial step (:func:`select_initial_step`), or ``dt0``."""
         if dt0 is not None:
-            return torch.as_tensor(dt0, dtype=t0.dtype, device=t0.device)
+            return _device.scalar(dt0, t0.dtype, t0.device)
         return select_initial_step(term, t0, y0, f0, args, solver.err_order, self.rtol, self.atol)
 
     def adapt(self, err_norm, dt, solver):

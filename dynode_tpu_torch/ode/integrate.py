@@ -114,6 +114,12 @@ def _unwrap_pid(controller) -> Optional[PIDController]:
 
 
 def _static_float(x):
+    """``x`` as a host float, or None where its value is not on the host: a
+    tensor inside a ``torch.func`` transform, or one on a device, whose
+    read would make the host wait for it (a CUDA-graph capture forbids
+    that). Such a value is dynamic, as a traced one is under JAX's jit."""
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        return None
     try:
         return float(x)
     except (TypeError, ValueError, RuntimeError):
@@ -189,15 +195,17 @@ def _checkpointed(fn, enabled: bool):
 
 
 def _jump_grid(controller, like: torch.Tensor):
+    """The controller's jump times and a closing ``inf`` on ``like``'s
+    device, in its dtype; built on the host (:func:`_device.from_host`)."""
     jump_ts = getattr(controller, "jump_ts", None)
     if jump_ts is None or len(jump_ts) == 0:
         return None
-    return torch.tensor(tuple(jump_ts) + (float("inf"),), dtype=like.dtype, device=like.device)
+    return _device.from_host(tuple(jump_ts) + (float("inf"),), like.device, like.dtype)
 
 
 def _init_dt(controller, term, solver, t0, t1, y0, f0, args, dt0):
     dt = controller.init_dt(term, solver, t0, t1, y0, f0, args, dt0)
-    return torch.as_tensor(dt, dtype=t0.dtype, device=t0.device).detach().expand(t0.shape)
+    return _device.scalar(dt, t0.dtype, t0.device).detach().expand(t0.shape)
 
 
 def _stack(emits, dim: int):
@@ -566,19 +574,35 @@ def _solve_constant_direct(
     )
 
 
-def _save_grid(ts, fdtype):
-    """A save grid as given (sequence, numpy array, tensor), read in
-    float64 on the host and cast to the state's dtype there: the CPU
-    tensor and its values as a float64 numpy array.
+def _save_grid(ts, fdtype, device):
+    """A save grid as given (sequence, numpy array, tensor) on ``device`` in
+    the state's dtype, and its values as a float64 numpy array.
 
-    Both are host constants, built outside any ``torch.func`` transform:
-    inside one, a new tensor is wrapped as a batched or gradient-tracking
-    tensor without storage, which ``.numpy()`` refuses."""
+    A grid of host values is read in float64 on the host and cast to the
+    state's dtype there, outside any ``torch.func`` transform (inside one,
+    a new tensor is wrapped as a batched or gradient-tracking tensor
+    without storage, which ``.numpy()`` refuses), then placed by
+    :func:`_device.constant`. A tensor on a device stays there: reading it
+    would make the host wait, so its values are None, as a traced grid's
+    under JAX's jit."""
+    if torch.is_tensor(ts) and ts.device.type != "cpu":
+        return ts.detach().to(device=device, dtype=fdtype), None
     if torch.is_tensor(ts):
-        ts = ts.detach().cpu()
+        ts = ts.detach()
     with torch._C._DisableFuncTorch():
         grid = torch.as_tensor(np.asarray(ts, dtype=np.float64)).to(fdtype)
-        return grid, grid.double().numpy()
+        values = grid.double().numpy()
+    return _device.constant(grid, device), values
+
+
+def _end_grid(t0, t1, t0_arr, t1_arr, fdtype, device):
+    """The save grid ``[t0, t1]`` on ``device`` in the state's dtype: from
+    host values when both ends are static (:func:`_device.from_host`), else
+    stacked on the device from their 0-d tensors, with no read by the host."""
+    st0, st1 = _static_float(t0), _static_float(t1)
+    if st0 is None or st1 is None:
+        return torch.stack([t0_arr, t1_arr])
+    return _device.from_host((st0, st1), device, fdtype)
 
 
 def diffeqsolve(
@@ -642,13 +666,12 @@ def diffeqsolve(
     subs_fn = None
     save_np = None  # the grid's host values; [t0, t1] needs none (one interval)
     if saveat is None:
-        save_host = torch.stack([t0_arr, t1_arr]).cpu()
+        save_ts = _end_grid(t0, t1, t0_arr, t1_arr, fdtype, device)
     elif saveat.subs is not None:
-        save_host, save_np = _save_grid(saveat.subs.ts, fdtype)
+        save_ts, save_np = _save_grid(saveat.subs.ts, fdtype, device)
         subs_fn = saveat.subs.fn
     else:
-        save_host, save_np = _save_grid(saveat.ts, fdtype)
-    save_ts = _device.constant(save_host, device)
+        save_ts, save_np = _save_grid(saveat.ts, fdtype, device)
 
     if batched:
         term = ODETerm(_member_map(term.vf, args), member_fn=term.vf)

@@ -8,8 +8,9 @@ bank of vectorized NUTS chains::
 
     python examples_torch/ensemble_scenarios.py [--device cpu]
 
-The fit's model runs eagerly on the card (the generic model path is not
-captured in a CUDA graph yet), so it takes long at the example's counts.
+On the card ``MCMC`` captures the fit's potential and gradient over the
+chain bank into a CUDA graph at the run's first evaluation and replays it
+at every later one.
 ``steps_per_call`` is JAX's chunking of the chain loop; the port takes it
 for the API only.
 """

@@ -62,8 +62,8 @@ def model(forward, obs=None, dtype=torch.float32, device=None):
     ``device`` (the card by default)."""
     device = _device.resolve(device)
 
-    def num(v):
-        return torch.tensor(v, dtype=dtype, device=device)
+    def num(v):  # filled on the device: no copy from the host inside a captured potential
+        return _device.scalar(v, dtype, device)
 
     mu = handlers.sample("mu", dist.TruncatedNormal(loc=num(1.0), scale=num(0.3), low=0.3, high=2.0))
     tau = handlers.sample("tau", dist.HalfNormal(num(0.3)))

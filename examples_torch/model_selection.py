@@ -48,9 +48,10 @@ def model_poisson(config: SimulationConfig, tf, obs_data):
 
 
 def model_negbin(config: SimulationConfig, tf, obs_data):
-    # the prior's numbers in the dtype and on the device of the counts
+    # the prior's numbers in the dtype and on the device of the counts, filled
+    # there (no copy from the host inside a captured potential)
     def num(v):
-        return torch.tensor(v, dtype=obs_data.dtype, device=obs_data.device)
+        return _device.scalar(v, obs_data.dtype, obs_data.device)
 
     conc = handlers.sample("concentration", dist.LogNormal(num(1.5), num(1.0)))
     handlers.sample("cases", dist.NegativeBinomial(_incidence(config, tf), conc), obs=obs_data)

@@ -9,8 +9,9 @@ leapfrog steps per iteration with cross-chain adaptation::
 
     python examples_torch/seip_fit.py [--device cpu]
 
-The model runs eagerly on the card (the generic model path is not captured
-in a CUDA graph yet), so the example's own counts take long there.
+On the card ``MCMC`` captures the model's potential and gradient over the
+chain bank into a CUDA graph at the run's first evaluation and replays it
+at every leapfrog.
 """
 
 import _bootstrap

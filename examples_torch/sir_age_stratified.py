@@ -56,7 +56,7 @@ def get_odeparams(config: SimulationConfig, *, dtype=torch.float32, device=None)
     return SIR_ODEParams(
         beta=torch.as_tensor(strain.r0 / strain.infectious_period, dtype=dtype, device=device),
         gamma=torch.as_tensor(1.0 / strain.infectious_period, dtype=dtype, device=device),
-        contact_matrix=torch.as_tensor(tp.contact_matrix, dtype=dtype, device=device),
+        contact_matrix=_device.from_host(tp.contact_matrix, device, dtype),
     )
 
 

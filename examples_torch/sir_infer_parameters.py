@@ -7,8 +7,8 @@ projection to a longer horizon with obs_data=None::
 
     python examples_torch/sir_infer_parameters.py [--device cpu]
 
-The model runs eagerly on the card (the generic model path is not captured
-in a CUDA graph yet), so the example's own counts take long there.
+On the card the NUTS fit's potential and gradient are captured into a
+CUDA graph and replayed at every leaf; the SVI fit runs eagerly.
 """
 
 import _bootstrap

@@ -584,6 +584,100 @@ def test_capture_that_meets_a_host_sync_raises_and_never_runs_eagerly(cuda):
         GraphedPotential(batched_pot_and_grad(copies_from_the_host))(z)
 
 
+def _generic_fit(label, dev, days):
+    """(model, keyword arguments) of ``sir_infer_parameters``' adaptive SIR
+    fit (the grid engine with masked step slots) or of the golden SEIP fit,
+    float32 and float64, on ``dev`` over ``days``."""
+    import chip_smoke
+    import torch_golden_seip as golden
+
+    if label == "golden_seip":
+        _, base, y0, sp = golden.build_fit(dev)
+        obs = torch.as_tensor(np.load(golden.GOLDEN)["obs"][:days], device=dev)
+        return golden.make_model(base, y0, sp, days=days), {"obs_data": obs}
+    mod = chip_smoke.example_module(label)
+    ((_, model, kwargs),) = chip_smoke.fit_models(label, mod, dev, days, torch.float32)
+    return model, kwargs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label, days", [("sir_infer_parameters", 30), ("golden_seip", 50)])
+def test_generic_potential_graph_replays_the_eager_call_bit_for_bit(cuda, label, days):
+    """The generic potential and gradient of a bank of 8 chains, captured
+    as ``MCMC`` captures it (``generic_pot_and_grad(flat, device)``) and
+    replayed, equal the eager call bit for bit, at the first replay and
+    after the input buffer is refilled; a released graph frees its
+    buffers."""
+    import chip_smoke
+    from dynode_tpu_torch.infer.mcmc import GraphedPotential, generic_pot_and_grad
+
+    model, kwargs = _generic_fit(label, cuda, days)
+    flat, z = chip_smoke.bank_potential(model, kwargs, 8, cuda)
+    eager, graph = generic_pot_and_grad(flat), generic_pot_and_grad(flat, cuda)
+    assert isinstance(graph, GraphedPotential)
+    for zb in (z, z.flip(0) * 0.9):
+        (pe_g, g_g), (pe_e, g_e) = graph(zb), eager(zb)
+        assert torch.isfinite(pe_e).all() and torch.equal(pe_g, pe_e) and torch.equal(g_g, g_e)
+    assert graph.replays == 2 and graph.device.type == "cuda"
+    graph.release()
+    assert graph.graph is None and graph.static_z is None and graph.constants == {}
+
+
+@pytest.mark.cuda
+def test_mcmc_graphs_the_generic_potential_and_never_runs_a_failed_capture_eagerly(cuda):
+    """``MCMC`` with no batched potential: vectorized NUTS and ChEES keep one
+    released graph that replayed every evaluation, the sequential method
+    none; a model that reads a card tensor on the host raises
+    ``GraphCaptureError`` naming its line, and samples nothing."""
+    from dynode_tpu_torch import dist
+    from dynode_tpu_torch.infer import MCMC, NUTS, ChEES, handlers
+    from dynode_tpu_torch.infer.mcmc import GraphCaptureError
+
+    obs = torch.as_tensor(np.random.default_rng(2).normal(0.5, 1.0, 32), dtype=torch.float32, device=cuda)
+
+    def mean_model(obs):
+        mu = handlers.sample("mu", dist.Normal(torch.zeros((), device=obs.device), 1.0))
+        handlers.sample("obs", dist.Normal(mu, 1.0), obs=obs)
+
+    def reads_the_host(obs):
+        mu = handlers.sample("mu", dist.Normal(torch.zeros((), device=obs.device), 1.0))
+        scale = 2.0 if float(obs.abs().max()) > 1e30 else 1.0
+        handlers.sample("obs", dist.Normal(mu, scale), obs=obs)
+
+    for kernel, method in ((NUTS(mean_model, max_tree_depth=3), "vectorized"), (ChEES(mean_model), "vectorized"),
+                           (NUTS(mean_model, max_tree_depth=3), "sequential")):
+        mc = MCMC(kernel, num_warmup=10, num_samples=10, num_chains=8, chain_method=method)
+        mc.run(torch.Generator(device=cuda).manual_seed(1), obs=obs)
+        assert torch.isfinite(mc.get_samples()["mu"]).all()
+        if method == "sequential":
+            assert mc.graphs == [] and mc.graph is None
+        else:
+            assert mc.graphs == [mc.graph] and mc.graph.replays > 10 and mc.graph.graph is None
+    mc = MCMC(NUTS(reads_the_host, max_tree_depth=3), num_warmup=10, num_samples=10, num_chains=8)
+    with pytest.raises(GraphCaptureError, match=r"test_torch_cuda\.py:\d+ \(scale = 2\.0 if float\(obs"):
+        mc.run(torch.Generator(device=cuda).manual_seed(1), obs=obs)
+    assert mc.last_state is None and mc._samples is None and mc.graph.replays == 0
+
+
+@pytest.mark.cuda
+def test_generic_bank_split_over_one_card_twice_graphs_each_shard(cuda):
+    """The generic potential split over the card listed twice: one graph
+    per shard, each replayed, and the draws equal the unsplit run's bit for
+    bit (NUTS and ChEES)."""
+    from dynode_tpu_torch.infer import MCMC, NUTS, ChEES
+
+    args = (torch.zeros(3, device=cuda), torch.eye(3, device=cuda))
+    for make in (lambda: NUTS(_unit_gaussian, max_tree_depth=4), lambda: ChEES(_unit_gaussian)):
+        runs = []
+        for mesh in (None, _split_mesh(cuda, "one_card_twice", "chain")):
+            mc = MCMC(make(), num_warmup=10, num_samples=10, num_chains=16, mesh=mesh, chain_axis="chain")
+            mc.run(torch.Generator(device=cuda).manual_seed(3), *args)
+            runs.append(mc)
+        assert len(runs[0].graphs) == 1 and len(runs[1].graphs) == 2
+        assert all(g.replays > 0 and g.device.type == "cuda" for g in runs[1].graphs)
+        assert torch.equal(runs[0].get_samples()["x"], runs[1].get_samples()["x"])
+
+
 @pytest.mark.cuda
 def test_member_quantiles_on_the_card_match_the_cpu(cuda):
     """``member_quantiles`` of float32 and bf16 saves on the card against the
