@@ -100,7 +100,8 @@ builds; Triton's JIT), then:
     the model for names, transforms and inits a copy of its
     ``build_model()``, the potential 13 (c)'s): (a) the potential and
     gradient at 4,096 chains captured into a CUDA graph equal the eager
-    call bit for bit; eager call and replay times (median of 3) and the
+    call bit for bit; eager call (one, after the capture's warm-up) and
+    replay times (median of 3) and the
     replay's device idle share (``torch.profiler``); (b) ``ChEES`` and (c)
     ``NUTS(dense_mass=True, max_tree_depth=3)`` at 4,096 chains,
     ``steps_per_call=16``, replaying that graph (``INFER_CHEES``,
@@ -133,12 +134,18 @@ builds; Triton's JIT), then:
     same saves on the host, ordered, kernel #2's launches counted on this
     path; (c) ``bench_nuts.py``'s ``bench_svi`` row: ``SVI(...,
     AutoMultivariateNormal, Adam(0.1), Trace_ELBO()).run_multistart`` at
-    1,024 starts, ``SVI_STEPS`` eager steps of its 300, then
-    ``Predictive(guide, params, num_samples=2000)``: final ELBOs finite on
-    99% of the starts, start 0's loss falls, ELBO-steps per second and the
-    row's extrapolated time; on 4 starts, 3 steps and 4 days in float64
-    the card's parameters equal the CPU's within 1e-10 given the same
-    draws. Phase 16 takes ``SLICE_BUDGET_S`` or less;
+    1,024 starts, ``SVI_EAGER_STEPS`` steps through the eager loop, then,
+    from the same seed, ``SVI_STEPS`` (50) of the row's 300 steps
+    replayed from the bank step's CUDA graph (the row's 300 extrapolated:
+    all 300 took the script too close to its time limit), whose first
+    losses must equal the eager ones bit for bit, then ``Predictive(guide, params,
+    num_samples=2000)``: final ELBOs finite on 99% of the starts, start
+    0's loss falls; the capture's wall (warm-up and capture), the eager
+    and replayed steps' walls and ELBO-steps per second, the final ELBO's
+    wall and the row's wall; on 4 starts, 3 steps and 4 days in float64
+    the card's parameters (through the graph) equal the CPU's within
+    1e-10 given the same draws. Phase 16 takes ``SLICE_BUDGET_S`` or
+    less;
 17. runs the stiff solvers and the mesh split on the card, over a mesh of
     every visible card (or the one card listed twice, whose shards then
     run in turn): (a) in float64, the stiff SEIRS of
@@ -152,7 +159,7 @@ builds; Triton's JIT), then:
     ``simulate_ensemble`` of one member against Tsit5 (2e-5); a gradient
     through TRBDF2 against central differences; (b) 4,096 members of the
     stiff SEIRS in float32 over ``STIFF_ENSEMBLE_DAYS``, batch-leading:
-    every result 0, 16 members held
+    every result 0, 8 members held
     to single-member solves (1e-5, equal steps), wall, steps and the
     device's idle share; (c) the four split kernel entries (#1, #3, #4,
     #5) at ``obs_max``, ``adaptive_obs``, ``seip_c`` and
@@ -163,7 +170,8 @@ builds; Triton's JIT), then:
     (b)'s ensemble, ``MCMC(ChEES(...), mesh=)`` at 1,024 chains (the split
     potential and gradient against the unsplit graph at the initial and
     final positions), ``SVI.run_multistart(mesh=)`` at 1,024 starts
-    against the unsplit bank. Phase 17 takes ``MESH_BUDGET_S`` or less;
+    over ``MESH_SVI_DAYS`` days (one graph of the bank step a shard)
+    against the unsplit bank (one graph). Phase 17 takes ``MESH_BUDGET_S`` or less;
 18. runs the kernels' other shapes, driven from the port's configs, on
     shape builds (``ops/_build.py``: a unit per kernel family and shape,
     compiled at first use) whose nvcc round starts beside the library's at
@@ -200,8 +208,9 @@ builds; Triton's JIT), then:
     bands against ``numpy.quantile`` and its median against the data; (d)
     every fit's log density and gradient, card against CPU, a sampling call
     at the example's widths with its counts cut, every MCMC bank through
-    the CUDA graph of its generic potential, and one gradient of each bank
-    at the example's own width and window: eager, and a sampler's also
+    the CUDA graph of its generic potential and every SVI fit through the
+    graph of its step, and, at the example's own width and window, one
+    gradient of each sampler's bank and one step of each SVI fit: eager,
     captured and replayed (bit for bit with the eager call), with the wall
     extrapolated to the example's own counts. Phase 19 takes
     ``EXAMPLES_BUDGET_S`` or less.
@@ -289,7 +298,11 @@ SLICE_CHEES = (8, 8)  # and its ChEES warmup and draws (bench: 200 + 400), then 
 FORECAST_QS = (0.05, 0.25, 0.5, 0.75, 0.95)
 TOL_BANDS = 1e-6  # member_quantiles on the card vs numpy.quantile on the host: max |d| / max |ref|
 SVI_STARTS = 1024  # phase 16 (c): bench_nuts.py's bench_svi width
-SVI_STEPS = 2  # of its 300, eager (the SVI bank step is not graph-captured); 12 before phase 19 came
+SVI_EAGER_STEPS = 2  # of its 300 through the eager loop: the reference of the graphed run's first losses
+# of the row's own 300 steps, replayed from the bank step's CUDA graph: all 300 held phase 16's gate (179.0 s)
+# but took the whole script to 1,092 s of its 1,200 s on an H100 80GB HBM3 at 700 W, whose hosts vary by a
+# third; the row's 300 are extrapolated from the replays
+SVI_STEPS = 50
 SVI_SAMPLES = 2000  # Predictive(guide, params, num_samples=...), as bench_svi
 SVI_CHECK = (4, 3, 4)  # starts, steps, days: the card against the CPU in float64
 MIN_FINITE_ELBO = 0.99  # share of starts whose final ELBO is finite
@@ -312,7 +325,8 @@ ROBER = ((1e-6, 1e-10), (5e-4, 1e-9))  # TRBDF2 tolerances; against Radau (tests
 MS_STIFF = ((1e-7, 1e-9), (1e-9, 1e-11), 1024)  # TRBDF2, Tsit5 tolerances, TRBDF2 budget (test_implicit.py:157-190)
 TOL_MS_STIFF = 2e-5  # max |d| / max |ref| per compartment
 GRAD_DAYS = 30  # the gradient's horizon through TRBDF2, at a constant dt = DT (central differences see the same grid)
-STIFF_ENSEMBLE, STIFF_PICK = 4096, 16  # bench_nuts.py's chain width; members held to single-member solves
+# bench_nuts.py's chain width; members held to single-member solves (1.4 s each, host-bound: the script's time)
+STIFF_ENSEMBLE, STIFF_PICK = 4096, 8
 STIFF_ENSEMBLE_DAYS = 30  # (b) and its split in (d): cut from STIFF_DAYS to hold phase 17's budget on slower hosts
 MS_STIFF_DAYS = 50  # (a)'s multi-strain TRBDF2 solve: cut from DAYS for the same reason (100 before phase 19 came)
 TOL_STIFF_MEMBER = 1e-5
@@ -321,7 +335,8 @@ TOL_RAGGED = TOL_BF16  # a ragged split of the adaptive kernel against the unspl
 # path's build of the kernel): the solves agree to their tolerance, the saves to one bf16 rounding
 MESH_CHAINS, MESH_CHEES = 1024, (1, 1)  # oneshot_1024's width; ChEES warmup and draws (cut to phase 17's budget)
 TOL_MESH_POT = 1e-6  # split potential and gradient against the unsplit: max |d| / max |ref| when not bit for bit
-MESH_SVI = (1024, 1, 1)  # starts, steps, final particles (cut to phase 17's budget)
+MESH_SVI = (1024, 2, 1)  # starts, steps, final particles (cut to phase 17's budget)
+MESH_SVI_DAYS = 20  # its fit window: cut from FIT_DAYS, since each run now captures a graph of its step a shard
 TOL_MESH_SVI = 1e-10
 MESH_BUDGET_S = 180.0  # phase 17's time on the card
 # phase 18: the kernels' other shapes, from their configs
@@ -357,10 +372,10 @@ BANK_WORKERS = (("seip_fit",), ("ensemble_scenarios", "hierarchical_strains", "s
 #: (d): the name of each fit's window in its counts
 FIT_WINDOW = {"ensemble_scenarios": "fit_days", "hierarchical_strains": "duration", "seip_fit": "fit_days",
               "sir_infer_parameters": "tf_fit", "model_selection": "tf", "svi_multistart": "tf_fit"}
-#: (d): per sampler of each fit: (its stage in the run's walls, what, the
-#: width of its bank, the example's own transitions or steps, gradients
-#: each at most; None: as many as the cut run took, which a zero-warmup
-#: ChEES bank keeps from its warm start)
+#: (d): per sampler or SVI fit of each fit: (its stage in the run's walls,
+#: what, the width of its bank, the example's own transitions or steps,
+#: gradients or steps each at most; None: as many as the cut run took,
+#: which a zero-warmup ChEES bank keeps from its warm start)
 FIT_OWN = {
     "ensemble_scenarios": [("fit", "NUTS", 64, 150 + 150, 2**6 - 1)],
     "hierarchical_strains": [("fit", "NUTS", 16, 300 + 300, 2**10 - 1)],
@@ -1282,16 +1297,12 @@ def infer_phase(dev, smi: str, gen, fit, fit_z) -> dict:
     pe_g, g_g = graph(fit_z)  # captures, then replays
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t
-    eager_walls = []
-    for _ in range(3):  # the first call also serves the bit-for-bit check
-        wall, (pe_e, g_e) = wall_ms(lambda: eager(fit_z))
-        eager_walls.append(wall)
-    eager_ms = statistics.median(eager_walls)
+    eager_ms, (pe_e, g_e) = wall_ms(lambda: eager(fit_z))  # one call: host-bound, 5-7 s, and phase 15 has 180 s
     same = torch.equal(pe_g, pe_e) and torch.equal(g_g, g_e)
     replay_ms, _ = median_ms(lambda: graph(fit_z))
     print(f"  (a) potential and gradient at {FIT_CHAINS} chains, {FIT_DAYS} days: warm-up + capture {capture_s:.1f} "
           f"s; graph replay equals the eager call bit for bit (value and gradient): {same}; eager {eager_ms:.1f} "
-          f"ms (median of 3), replay {replay_ms:.1f} ms (median of 3 after a warm-up), host clock: "
+          f"ms (one call after the capture's warm-up), replay {replay_ms:.1f} ms (median of 3 after a warm-up), host clock: "
           f"{1e3 / eager_ms:.2f} vs "
           f"{1e3 / replay_ms:.2f} leapfrogs/s [{smi}]")
     check(same, "the graph replay differs from the eager potential")
@@ -1489,34 +1500,62 @@ def slice_phase(dev, smi: str, fit) -> dict:
     check(band_err <= TOL_BANDS, f"forecast bands vs numpy.quantile: rel err {band_err:.3e}")
     check(ordered, "forecast bands out of order")
 
-    # (c) bench_nuts.py's bench_svi row: multi-start SVI, eager, then Predictive
-    svi = SVI(fit_fn, AutoMultivariateNormal(fit_fn), Adam(0.1), Trace_ELBO())
+    # (c) bench_nuts.py's bench_svi row: multi-start SVI, its first steps through the eager loop,
+    # the row through the bank step's CUDA graph from the same seed, then Predictive
+    def bench_svi():
+        return SVI(fit_fn, AutoMultivariateNormal(fit_fn), Adam(0.1), Trace_ELBO())
+
+    svi = bench_svi()
+    svi._graphed = lambda device: False  # the eager loop: the reference of the graph's first losses
+    # (its final ELBO, which nothing reads, on one particle)
+    eager_walls = eager_bank_walls(svi)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    result = svi.run_multistart(SEED, num_steps=SVI_STEPS, num_starts=SVI_STARTS, obs=obs)
+    eager = svi.run_multistart(SEED, num_steps=SVI_EAGER_STEPS, num_starts=SVI_STARTS, final_particles=1, obs=obs)
     torch.cuda.synchronize()
-    svi_s = time.perf_counter() - t
+    eager_s = time.perf_counter() - t
+    svi = bench_svi()
+    with svi_graphs(timed=True) as graphs:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = svi.run_multistart(SEED, num_steps=SVI_STEPS, num_starts=SVI_STARTS, obs=obs)
+        torch.cuda.synchronize()
+        svi_s, done = time.perf_counter() - t, time.perf_counter()
+    check(len(graphs) == 1 and graphs[0].replays == SVI_STEPS and graphs[0].graph is None,
+          "(c) the SVI bank did not replay one released graph a step")
+    g = graphs[0]
+    capture_s = g.warmup_s + g.capture_s
+    step_s = statistics.median(b - a for a, b in zip(g.ends, g.ends[1:]))  # the replayed steps, draws included
+    eager_step_s = statistics.median(eager_walls)
+    first_equal = torch.equal(result.all_losses[:, :SVI_EAGER_STEPS], eager.all_losses)
     finite = float(torch.isfinite(result.final_elbos).double().mean())
     start0 = result.all_losses[0].double().cpu()
     t = time.perf_counter()
     post = Predictive(svi.guide, params=result.params, num_samples=SVI_SAMPLES)(SEED, obs=obs)
     torch.cuda.synchronize()
     pred_s = time.perf_counter() - t
-    rate = SVI_STARTS * SVI_STEPS / svi_s
-    print(f"  (c) SVI AutoMultivariateNormal, Adam(0.1), {SVI_STARTS} starts x {SVI_STEPS} steps, eager: {svi_s:.1f} s, "
-          f"{rate:.1f} ELBO-steps/s; the row's 300 steps would take about {svi_s / SVI_STEPS * 300:.0f} s; final "
-          f"ELBOs finite {finite:.4f} (gate {MIN_FINITE_ELBO}), best start {int(result.best_idx)} ELBO "
-          f"{float(result.final_elbos[result.best_idx]):.2f}; start 0's loss {float(start0[0]):.2f} -> "
-          f"{float(start0[-1]):.2f}; Predictive(guide, {SVI_SAMPLES}) {pred_s:.1f} s, r0_scales mean "
-          f"{np.round(post['r0_scales'].double().mean(dim=0).cpu().numpy(), 4).tolist()} [{smi}]")
+    row_s = capture_s + 300 * step_s
+    print(f"  (c) SVI AutoMultivariateNormal, Adam(0.1), {SVI_STARTS} starts: {SVI_EAGER_STEPS} steps through the "
+          f"eager loop {eager_s:.1f} s, a step {eager_step_s:.2f} s ({SVI_STARTS / eager_step_s:.1f} ELBO-steps/s); "
+          f"{SVI_STEPS} steps replayed from the bank step's CUDA graph {svi_s:.1f} s: warm-up and capture "
+          f"{capture_s:.2f} s ({g.warmup_s:.2f} + {g.capture_s:.2f}), a replayed step {step_s * 1e3:.1f} ms (median "
+          f"of {SVI_STEPS - 1}, draws included; {SVI_STARTS / step_s:.1f} ELBO-steps/s, {eager_step_s / step_s:.1f}x "
+          f"the eager step), the final ELBO (eager, 16 particles) {done - g.ends[-1]:.2f} s; the row's 300 steps "
+          f"{row_s:.1f} s with the capture ({'measured' if SVI_STEPS == 300 else 'extrapolated'}), about "
+          f"{(eager_s / SVI_EAGER_STEPS) * 300:.0f} s eager; the first {SVI_EAGER_STEPS} steps' losses equal the "
+          f"eager loop's bit for bit: {first_equal}; final ELBOs finite {finite:.4f} (gate {MIN_FINITE_ELBO}), best "
+          f"start {int(result.best_idx)} ELBO {float(result.final_elbos[result.best_idx]):.2f}; start 0's loss "
+          f"{float(start0[0]):.2f} -> {float(start0[-1]):.2f}; Predictive(guide, {SVI_SAMPLES}) {pred_s:.1f} s, "
+          f"r0_scales mean {np.round(post['r0_scales'].double().mean(dim=0).cpu().numpy(), 4).tolist()} [{smi}]")
+    check(first_equal, "(c) the graphed SVI bank's first losses differ from the eager loop's")
     check(finite >= MIN_FINITE_ELBO, f"(c) finite final ELBOs on {finite:.4f} of the starts")
     check(float(start0[-1]) < float(start0[0]), "(c) start 0's loss did not fall")
     check(post["r0_scales"].shape == (SVI_SAMPLES, 3) and bool(torch.isfinite(post["r0_scales"]).all()),
           "(c) Predictive draws")
     t = time.perf_counter()
     svi_err = svi_card_vs_cpu(dev, obs)
-    print(f"      card vs CPU, {SVI_CHECK[0]} starts x {SVI_CHECK[1]} steps, {SVI_CHECK[2]} days, float64, draws "
-          f"recorded on the CPU and replayed: parameters max rel err {svi_err:.3e} (tol {TOL_CARD_CPU:.0e}); "
+    print(f"      card (through the graph) vs CPU, {SVI_CHECK[0]} starts x {SVI_CHECK[1]} steps, {SVI_CHECK[2]} days, "
+          f"float64, draws recorded on the CPU and replayed: parameters max rel err {svi_err:.3e} (tol {TOL_CARD_CPU:.0e}); "
           f"{time.perf_counter() - t:.1f} s")
     check(svi_err <= TOL_CARD_CPU, f"(c) SVI card vs CPU: rel err {svi_err:.3e}")
     phase_s = time.perf_counter() - t_phase
@@ -1913,20 +1952,27 @@ def mesh_phase(dev, smi: str, fit, k) -> dict:
 
     starts, n_steps_svi, particles = MESH_SVI
     start_mesh = create_mesh(("start",), devices=devices)
-    svi = SVI(fit_fn, AutoMultivariateNormal(fit_fn), Adam(0.1), Trace_ELBO())
+    svi_models = {d: fit_model(days=MESH_SVI_DAYS, device=d) for d in set(devices)}
+
+    def svi_fn(obs=None):  # the model on the card of its observations
+        return svi_models[obs.device](obs=obs)
+
+    svi = SVI(svi_fn, AutoMultivariateNormal(svi_fn), Adam(0.1), Trace_ELBO())
     fits = []
     for m in (None, start_mesh):
         t = time.perf_counter()
         fits.append(svi.run_multistart(SEED, num_steps=n_steps_svi, num_starts=starts, final_particles=particles,
-                                       mesh=m, obs=fit.obs))
+                                       mesh=m, obs=fit.obs[:MESH_SVI_DAYS]))
         torch.cuda.synchronize()
         fits[-1] = (fits[-1], time.perf_counter() - t)
+        check([g.replays for g in svi.graphs] == [n_steps_svi] * (1 if m is None else len(devices)),
+              "SVI(mesh=): not one graph a shard, replayed every step")
     (a, a_s), (b, b_s) = fits
     finite = torch.isfinite(a.final_elbos)
     check(torch.equal(finite, torch.isfinite(b.final_elbos)), "SVI(mesh=): other starts' final ELBOs are finite")
     elbo_err = rel64([b.final_elbos[finite]], [a.final_elbos[finite]])
     param_err = rel64([b.all_params[key] for key in a.all_params], [a.all_params[key] for key in a.all_params])
-    print(f"  (d) SVI.run_multistart(mesh=) {starts} starts x {n_steps_svi} steps: best start {int(b.best_idx)} "
+    print(f"  (d) SVI.run_multistart(mesh=) {starts} starts x {n_steps_svi} steps, {MESH_SVI_DAYS} days: best start {int(b.best_idx)} "
           f"(unsplit {int(a.best_idx)}); final ELBOs max rel {elbo_err:.3e}, parameters {param_err:.3e} (tol "
           f"{TOL_MESH_SVI:.0e}); split {b_s:.1f} s, unsplit {a_s:.1f} s [{smi}]")
     check(int(a.best_idx) == int(b.best_idx), "SVI(mesh=): another best start")
@@ -2248,14 +2294,13 @@ def bank_potential(model, kwargs, width: int, dev, seed: int = SEED):
     return flat, unravel.ravel(util.unconstrain_sample(transforms, bank), batch_dims=1).to(dev)
 
 
-def bank_capture(model, kwargs, width: int, dev, graphed: bool) -> dict:
-    """Wall seconds of one eager potential-and-gradient call of ``model``'s
-    bank of ``width`` chains (or SVI starts) on ``dev``, as
-    ``generic_pot_and_grad`` maps it (``eager_s``). With ``graphed``, the
-    bank's CUDA graph as ``MCMC`` captures it: the eager call is the
-    capture's warm-up, ``capture_s`` the capture's wall (warm-up and
-    capture); the graph, its input and the eager result are kept under
-    ``"held"`` for :func:`bank_replays`."""
+def bank_capture(model, kwargs, width: int, dev) -> dict:
+    """One bank gradient of ``model`` at ``width`` chains on ``dev``, as
+    ``MCMC`` maps it (``generic_pot_and_grad``), eager and in the CUDA graph
+    that ``MCMC`` captures: the eager call's wall (``eager_s``, the capture's
+    warm-up), the capture's (``capture_s``, warm-up and capture), and, under
+    ``"held"``, a replay that tells whether it equals the eager call bit for
+    bit and the graph's release, for :func:`bank_replays`."""
     import torch
 
     from dynode_tpu_torch.infer.mcmc import generic_pot_and_grad
@@ -2263,48 +2308,98 @@ def bank_capture(model, kwargs, width: int, dev, graphed: bool) -> dict:
     flat, z = bank_potential(model, kwargs, width, dev)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    if not graphed:
-        pe, grad = generic_pot_and_grad(flat)(z)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(pe).all() and torch.isfinite(grad).all()), "(d) a non-finite bank gradient")
-        return {"eager_s": time.perf_counter() - t}
     graph = generic_pot_and_grad(flat, dev)
     pe, grad = graph.capture(z)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(pe).all() and torch.isfinite(grad).all()), "(d) a non-finite bank gradient")
-    return {"eager_s": graph.warmup_s, "capture_s": time.perf_counter() - t, "held": (graph, z, pe, grad)}
+
+    def replay() -> bool:
+        pe_g, grad_g = graph(z)
+        return torch.equal(pe_g, pe) and torch.equal(grad_g, grad)
+
+    return {"eager_s": graph.warmup_s, "capture_s": time.perf_counter() - t, "held": (replay, graph.release)}
+
+
+def svi_capture(model, kwargs, width: int, dev) -> dict:
+    """One SVI step of ``model`` at ``width`` starts on ``dev``, as the
+    example's ``SVIProcess`` fits it (``AutoMultivariateNormal``,
+    ``init_to_median``, ``Adam(0.1)``, ``Trace_ELBO()``): ``SVI.run``'s step
+    at one start, ``run_multistart``'s vmapped bank step at more. Its eager
+    wall (``eager_s``), then its CUDA graph as the runs capture it
+    (``infer.graphs.GraphedStep``; ``capture_s``, warm-up and capture,
+    after a first replay that must equal the eager step bit for bit), and,
+    under ``"held"``, a replay from the same state and draws that tells
+    whether it equals the eager step (loss, parameters and Adam state) bit
+    for bit, and the graph's release, for :func:`bank_replays`."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from dynode_tpu_torch.infer import SVI, Adam, AutoMultivariateNormal, Trace_ELBO
+    from dynode_tpu_torch.infer.graphs import GraphedStep
+    from dynode_tpu_torch.infer.util import GivenDraws, bank_draws
+
+    svi = SVI(model, AutoMultivariateNormal(model), Adam(0.1), Trace_ELBO())
+    base = svi.init(SEED, **kwargs)
+    if width == 1:
+        def step(carry, draws):
+            return svi._step(*carry, GivenDraws(draws, dev), (), kwargs)
+
+        state = (base.params, base.opt_state)
+        draws = bank_draws(base.rng_key, svi._signature, None)
+    else:
+        step = svi._bank_fns(dev, dev, (), kwargs, 1)[0]
+        params = {k: v.expand((width,) + tuple(v.shape)).clone() for k, v in base.params.items()}
+        state = (params, torch.func.vmap(svi.optim.init)(params))
+        draws = bank_draws(base.rng_key, svi._signature, width)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = step(state, draws)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t
+    check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(want)), "(d) a non-finite SVI step")
+    graph = GraphedStep(step)
+    graph.start(state)
+
+    def replay() -> bool:
+        for buf, x in zip(tree_leaves(graph.state), tree_leaves(state)):
+            buf.copy_(x)
+        loss = graph(draws)
+        return torch.equal(loss, want[1]) and all(torch.equal(a, b) for a, b in zip(tree_leaves(graph.state),
+                                                                                   tree_leaves(want[0])))
+
+    check(replay(), "(d) the SVI step's first replay differs from the eager step")
+    torch.cuda.synchronize()
+    return {"eager_s": eager_s, "capture_s": graph.warmup_s + graph.capture_s, "held": (replay, graph.release)}
 
 
 def bank_replays(m: dict) -> dict:
-    """``m`` of :func:`bank_capture` with the median wall of
-    ``GRAPH_REPLAYS`` replays of its graph (``replay_s``) and whether every
-    replay equals the eager call bit for bit (``equal``); the graph is
-    released."""
+    """``m`` of :func:`bank_capture` or :func:`svi_capture` with the median
+    wall of ``GRAPH_REPLAYS`` replays of its graph (``replay_s``) and
+    whether every replay equals the eager call bit for bit (``equal``);
+    the graph is released."""
     import torch
 
-    if "held" not in m:
-        return m
-    graph, z, pe, grad = m.pop("held")
+    replay, release = m.pop("held")
     walls, equal = [], True
     for _ in range(GRAPH_REPLAYS):
         t = time.perf_counter()
-        pe_g, grad_g = graph(z)
+        same = replay()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
-        equal = equal and torch.equal(pe_g, pe) and torch.equal(grad_g, grad)
-    graph.release()
+        equal = equal and same
+    release()
     return {**m, "replay_s": statistics.median(walls), "equal": equal}
 
 
 def bank_worker(names, dev, conn) -> None:
     """Phase 19 (d)'s bank measurements in a process of their own, beside
     (a) to (c) in the main one (both host-bound): for each fit of ``names``
-    and each width of its samplers (``FIT_OWN``), :func:`bank_capture` at
-    the example's own window; "captured" through ``conn``; then, on the
-    main process's word (its card work done, so the replays share the
-    card with nothing), :func:`bank_replays` of each, sent back as
-    ``{(name, width): measurement}``. A failure is sent as its
-    traceback."""
+    and each of its samplers and SVI fits (``FIT_OWN``), :func:`bank_capture`
+    or :func:`svi_capture` at the example's own width and window;
+    "captured" through ``conn``; then, on the main process's word (its card
+    work done, so the replays share the card with nothing),
+    :func:`bank_replays` of each, sent back as ``{(name, stage):
+    measurement}``. A failure is sent as its traceback."""
     import traceback
 
     import torch
@@ -2315,8 +2410,8 @@ def bank_worker(names, dev, conn) -> None:
             mod = example_module(name)
             (_, model, kwargs), *_ = fit_models(name, mod, dev, mod.COUNTS[FIT_WINDOW[name]], torch.float32)
             for stage, _, width, _, _ in FIT_OWN[name]:
-                if (name, width) not in held:  # a sampler comes before the SVI fit of its width
-                    held[(name, width)] = bank_capture(model, kwargs, width, dev, stage != "svi")
+                measure = svi_capture if stage == "svi" else bank_capture
+                held[(name, stage)] = measure(model, kwargs, width, dev)
         conn.send("captured")
         conn.recv()
         conn.send({key: bank_replays(m) for key, m in held.items()})
@@ -2449,16 +2544,18 @@ def examples_phase(dev, smi: str) -> dict:
     ``svi_multistart`` SVI 4 steps (500) at 64 starts, then 4 draws (24) of
     its zero-warmup ChEES bank of 256 chains, 5 days (100). Every draw
     finite; every sampler's bank ran through its CUDA graph (replays
-    counted). Per sampler it prints that run's transitions (or SVI steps),
-    its gradient calls (counted, replays included) and wall, the wall of
-    one gradient of the bank at the example's own width and fit window
-    (the model under ``torch.func.vmap``, as ``MCMC`` maps it; an SVI step
-    is one such gradient over the starts), eager, and for a sampler the
-    capture of its graph (warm-up and capture) and the median of
+    counted), and every SVI fit replayed its step's graph at each of its
+    steps. Per sampler and SVI fit it prints that run's transitions (or
+    SVI steps), its gradient calls or step replays (counted) and wall, and
+    at the example's own width and fit window the wall of one gradient of
+    the bank (the model under ``torch.func.vmap``, as ``MCMC`` maps it;
+    :func:`bank_capture`) or of one SVI step (``SVI.run``'s at one start,
+    the vmapped bank step at 64; :func:`svi_capture`), eager, the capture
+    of its graph (warm-up and capture) and the median of
     ``GRAPH_REPLAYS`` replays, each equal to the eager call bit for bit (a
-    gate), and the replay (SVI: the eager call) times the example's own
-    counts: the extrapolated wall (at most, for the samplers whose
-    leapfrogs a transition adapt). The banks are measured in the worker
+    gate), and the replay times the example's own counts plus the capture:
+    the extrapolated wall (at most, for the samplers whose leapfrogs a
+    transition adapt). The banks are measured in the worker
     processes of ``BANK_WORKERS`` (:func:`bank_worker`), started with the
     phase: their eager calls and captures, host-bound as (a) to (c) are,
     run beside those on other cores; their replays run after them, one
@@ -2520,13 +2617,16 @@ def examples_phase(dev, smi: str) -> dict:
             wall go to ``cut_runs``."""
             mod = example_module(name)
             cut = FIT_CUTS[name]
-            with counting_gradients() as seen:
+            with counting_gradients() as seen, svi_graphs() as steps:
                 out = mod.run(dev, overrides={**cut, FIT_WINDOW[name]: EXAMPLE_FIT_DAYS})
             check(len(seen["graphs"]) > 0 and all(g.replays > 0 for g in seen["graphs"]),
                   f"(d) {name}: a sampler's bank did not run through its CUDA graph")
             for stage, what, width, own, each in FIT_OWN[name]:
                 if stage == "svi":
-                    done = grads = cut.get("svi_iterations", cut.get("iterations"))
+                    done = cut.get("svi_iterations", cut.get("iterations"))
+                    grads = sum(g.replays for g in steps)
+                    check(len(steps) > 0 and grads == done and all(g.graph is None for g in steps),
+                          f"(d) {name}: the SVI fit did not replay its step's released CUDA graph")
                 else:
                     done = cut["draws"] if stage == "chees" else (cut["warmup"] + cut["samples"])
                     done *= 2 if name == "model_selection" else 1
@@ -2631,17 +2731,16 @@ def examples_phase(dev, smi: str) -> dict:
         print(f"      (d) the banks: {len(BANK_WORKERS)} workers' captures beside (a)-(c), {waited:.1f} s waited for "
               f"after them; the replays {time.perf_counter() - t:.1f} s")
         for name, stage, what, width, own, each, done, grads, wall, own_days in cut_runs:
-            m, graphed = banks[(name, width)], stage != "svi"
-            total = (m["replay_s"] if graphed else m["eager_s"]) * own * each + m.get("capture_s", 0.0)
-            graph = (f", captured in {m['capture_s']:.2f} s, replayed in {m['replay_s']:.3f} s (median of "
-                     f"{GRAPH_REPLAYS}; bit for bit with the eager call: {m['equal']})" if graphed else "")
+            m, svi = banks[(name, stage)], stage == "svi"
+            total = m["replay_s"] * own * each + m["capture_s"]
             print(f"  (d) {name} {what}, width {width}: {done} transitions or steps over {EXAMPLE_FIT_DAYS} days, "
-                  f"{grads} gradient calls, {wall:.1f} s; one gradient of the bank over the example's {own_days} days "
-                  f"{m['eager_s']:.2f} s eager{graph}; at the example's own {own} x "
-                  f"{'at most ' if each > 1 and stage != 'chees' else ''}{each:.1f} gradients: {total:,.0f} s "
-                  f"({total / 3600:.2f} h) [{smi}]")
-            if graphed:
-                check(m["equal"], f"(d) {name} {what}: the graph's replay differs from the eager call")
+                  f"{grads} {'step replays' if svi else 'gradient calls'}, {wall:.1f} s; one "
+                  f"{'step' if svi else 'gradient'} of the bank over the example's {own_days} days "
+                  f"{m['eager_s']:.2f} s eager, captured in {m['capture_s']:.2f} s, replayed in {m['replay_s']:.3f} s "
+                  f"(median of {GRAPH_REPLAYS}; bit for bit with the eager call: {m['equal']}); at the example's own "
+                  f"{own} x {'at most ' if each > 1 and stage != 'chees' else ''}{each:.1f} "
+                  f"{'steps' if svi else 'gradients'}: {total:,.0f} s ({total / 3600:.2f} h) [{smi}]")
+            check(m["equal"], f"(d) {name} {what}: the graph's replay differs from the eager call")
 
         phase_s = time.perf_counter() - t_phase
         print(f"  phase 19: {phase_s:.1f} s (gate {EXAMPLES_BUDGET_S:.0f} s); launches {launches}")
@@ -2671,7 +2770,8 @@ def svi_card_vs_cpu(dev, obs) -> float:
     days in float64 on CPU tensors and on the card, the draws recorded on
     the CPU and replayed on the card, the guide's locations started at the
     prior mean (no draws); the max relative error of every start's final
-    parameters."""
+    parameters. The card's run replays its step from a CUDA graph (a
+    failed check otherwise)."""
     import torch
 
     from dynode_tpu_torch.infer import SVI, Adam, AutoMultivariateNormal, Trace_ELBO, init_to_mean
@@ -2683,11 +2783,73 @@ def svi_card_vs_cpu(dev, obs) -> float:
         model = fit_model(days=days, dtype=torch.float64, device=where)
         draws = DrawTape(torch.Generator().manual_seed(SEED)) if where == cpu else DrawTape(tape=tape, device=dev)
         svi = SVI(model, AutoMultivariateNormal(model, init_loc_fn=init_to_mean), Adam(0.1), Trace_ELBO())
-        result = svi.run_multistart(draws, num_steps=steps, num_starts=starts, final_particles=2,
-                                    obs=obs[:days].to(where))
+        with svi_graphs() as graphs:
+            result = svi.run_multistart(draws, num_steps=steps, num_starts=starts, final_particles=2,
+                                        obs=obs[:days].to(where))
+        if where != cpu:
+            check([g.replays for g in graphs] == [steps], "(c) the card's SVI check did not replay its graph")
         out[where.type] = result.all_params
         tape = draws.tape if where == cpu else tape
     return max(float((out[dev.type][k].cpu() - v).abs().max() / v.abs().max()) for k, v in out["cpu"].items())
+
+
+@contextlib.contextmanager
+def svi_graphs(timed: bool = False):
+    """The CUDA graphs of the SVI steps that the runs inside the block
+    capture (``infer.svi``'s ``GraphedStep`` replaced by a subclass that
+    keeps each one): yields their list. With ``timed``, each call of a
+    graph (the first captures, the others replay) also synchronizes the
+    card and records when it ended (``ends``, host clock)."""
+    import torch
+
+    from dynode_tpu_torch.infer import svi as svi_mod
+
+    made = []
+    plain = svi_mod.GraphedStep
+
+    class Kept(plain):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.ends = []
+            made.append(self)
+
+        def __call__(self, draws):
+            loss = super().__call__(draws)
+            if timed:
+                torch.cuda.synchronize(self.device)
+                self.ends.append(time.perf_counter())
+            return loss
+
+    svi_mod.GraphedStep = Kept
+    try:
+        yield made
+    finally:
+        svi_mod.GraphedStep = plain
+
+
+def eager_bank_walls(svi) -> list:
+    """The list that the wall of each eager bank step of ``svi``'s
+    ``run_multistart`` runs goes to (host clock, the card synchronized
+    before and after)."""
+    import torch
+
+    walls, plain = [], svi._bank_fns
+
+    def timed(*args, **kwargs):
+        step, elbo = plain(*args, **kwargs)
+
+        def step_timed(state, noise):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(state, noise)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            return out
+
+        return step_timed, elbo
+
+    svi._bank_fns = timed
+    return walls
 
 
 def wall_ms(fn):

@@ -33,11 +33,8 @@ The potential and its gradient for the bank:
   method and CPU tensors run the map eagerly.
 """
 
-import contextlib
 import inspect
 import math
-import time
-import traceback
 import warnings
 from collections import OrderedDict
 from typing import Callable, Dict, Optional
@@ -58,6 +55,7 @@ from ..parallel.mesh import (
 )
 from . import handlers
 from .chees import ChEES, make_chees_parts
+from .graphs import GraphCaptureError, capture
 from .hmc import (
     Draws,
     build_warmup_schedule,
@@ -154,42 +152,12 @@ def split_pot_and_grad(plan, parts: dict) -> Callable:
     return pot_and_grad
 
 
-class GraphCaptureError(RuntimeError):
-    """The potential could not be captured into a CUDA graph."""
-
-
-@contextlib.contextmanager
-def _syncs_raise():
-    """Within the block, an operation that would make the host wait for the
-    device (``.item()``, ``nonzero``, a copy from pageable host memory)
-    raises instead (``torch.cuda.set_sync_debug_mode("error")``). Torch
-    warns that the mode misses some syncs; a sync it misses fails the
-    capture itself, and :meth:`GraphedPotential.capture` raises for both."""
-    mode = torch.cuda.get_sync_debug_mode()
-    with warnings.catch_warnings():
-        warnings.filterwarnings("ignore", message="Synchronization debug mode is a prototype feature")
-        torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
-
-
-def _user_frame(tb) -> str:
-    """The innermost frame outside torch of the traceback ``tb``."""
-    mine = [f for f in traceback.extract_tb(tb) if "/torch/" not in f.filename.replace("\\", "/")]
-    if not mine:
-        return "no frame outside torch"
-    f = mine[-1]
-    return f"{f.filename}:{f.lineno} ({f.line})"
-
-
 class GraphedPotential:
     """``pot_and_grad`` of a ``(C, D)`` bank captured into one CUDA graph.
 
     The first call copies its input into a static ``(C, D)`` buffer, runs
     ``pot_and_grad`` once on a side stream (warm-up), then captures it
-    with host syncs raising (:func:`_syncs_raise`); every call then copies
+    with host syncs raising (:func:`.graphs.capture`); every call then copies
     its input into the buffer, replays the graph and returns clones of the
     static outputs. The replay runs the captured kernels in the captured
     order, so it equals the eager call bit for bit. The device constants
@@ -213,38 +181,14 @@ class GraphedPotential:
         every replay equals. :attr:`warmup_s` and :attr:`capture_s` hold the
         walls of the warm-up and of the capture (host clock, each ended by
         a synchronize of the card)."""
-        dev = zb.device
-        self.device = dev
+        self.device = zb.device
         self.static_z = zb.detach().clone()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        # ``torch.cuda.graph``'s default capture stream is one per process,
-        # made on whichever card was current at the first capture: each
-        # graph gets a stream of its own card
-        with torch.cuda.device(dev), _device.keep_constants(self.constants):
-            start = time.perf_counter()
-            with torch.cuda.stream(side):
-                warm = self.pot_and_grad(self.static_z)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            torch.cuda.synchronize(dev)
-            self.warmup_s = time.perf_counter() - start
-            start = time.perf_counter()
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
-                    with _syncs_raise():
-                        self.static_pe, self.static_grad = self.pot_and_grad(self.static_z)
-            except RuntimeError as err:
-                first = err
-                while isinstance(first.__context__, RuntimeError):
-                    first = first.__context__
-                raise GraphCaptureError(
-                    f"CUDA-graph capture of the potential failed at {_user_frame(first.__traceback__)}: {first}. "
-                    "A captured potential must not sync the host; the sampler does not run it eagerly instead"
-                ) from err
-            torch.cuda.synchronize(dev)
-            self.capture_s = time.perf_counter() - start
-        self.graph = graph
+
+        def call():
+            return self.pot_and_grad(self.static_z)
+
+        self.graph, warm, (self.static_pe, self.static_grad), self.warmup_s, self.capture_s = capture(
+            self.device, self.constants, call, call, "the potential")
         return warm
 
     def __call__(self, zb: torch.Tensor):

@@ -15,13 +15,21 @@ then ``svi.run(key, num_steps, init_state)`` returning an ``SVIRunResult``.
   (:class:`~.hmc.Draws`, or a test's replay of recorded draws): every draw
   of a run comes from that one stream, in order, where JAX splits a key
   per step. So the draws differ from JAX's for a seed.
-- ``SVI.run`` is one ``lax.scan`` in JAX and a host loop here (no host
-  sync inside it). ``run_multistart`` maps one start's optimization and
-  its final ELBO over the starts with ``torch.func.vmap``; each step's
-  draws for the whole bank are taken from the seam first, in the order of
-  the guide's draws (its draw signature, recorded by ``init``), and handed
-  to the starts. JAX's identity-keyed cache of the compiled bank has
-  nothing to hold in an eager port and is not kept.
+- **A CUDA graph a run.** JAX jits ``SVI.run``'s loop as one
+  ``lax.scan`` and ``run_multistart``'s bank as one program. On a card
+  the port captures the step (one ``update``, or the bank's
+  ``torch.func.vmap`` of one start's step) into one CUDA graph at the
+  run's first step and replays it at every step
+  (:class:`~.graphs.GraphedStep`; one graph a shard on a mesh), then
+  releases it. Each step's draws are taken from the seam outside the
+  graph first, in the order of the guide's draws (its draw signature,
+  recorded by ``init``), and handed to the graph: so a run takes the
+  eager loop's draws and arithmetic, bit for bit. A capture that fails
+  raises :class:`~.graphs.GraphCaptureError` naming the user's line, and
+  no step runs eagerly in its place. CPU tensors run the steps eagerly
+  (a host loop; the losses stay on the device). The final ELBO of a
+  bank runs eagerly, once a run. JAX's identity-keyed cache of the
+  compiled bank is not kept: a graph closes over its run's arguments.
 """
 
 from __future__ import annotations
@@ -32,10 +40,13 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 import torch.utils._pytree as pytree
 
+from .. import _device
 from ..dist import Delta, MultivariateNormal, Normal
 from ..dist.transforms import biject_to
 from ..parallel.mesh import gather_shards, run_shards, shard_plan, split
 from . import handlers
+from .graphs import GraphedStep
+from .hmc import Draws
 from .util import (
     GivenDraws,
     RecordingDraws,
@@ -286,7 +297,7 @@ class AutoMultivariateNormal(AutoGuide):
         self._setup(*args, **kwargs)
         flat = self._init_flat
         loc = handlers.param(f"{self.prefix}_loc", flat)
-        diag = _softplus_inv(torch.as_tensor(self.init_scale, dtype=flat.dtype, device=flat.device))
+        diag = _softplus_inv(_device.scalar(self.init_scale, flat.dtype, flat.device))
         raw_init = torch.diag_embed(diag.expand(self._dim).clone())
         raw = handlers.param(f"{self.prefix}_scale_tril", raw_init)
         scale_tril = self._scale_tril_from_params({f"{self.prefix}_scale_tril": raw})
@@ -344,6 +355,9 @@ class SVI:
         self.loss = loss or Trace_ELBO()
         #: the guide's draws in one call (kind, shape, dtype), from ``init``
         self._signature = None
+        #: the :class:`~.graphs.GraphedStep` of the last run on a card (one
+        #: a shard on a mesh), released when the run ended
+        self.graphs: list = []
 
     def _seam(self, rng_key, args, kwargs):
         """The run's draw seam: an int seeds a generator on the device of
@@ -368,15 +382,35 @@ class SVI:
         opt_state = self.optim.init(params)
         return SVIState(params=params, opt_state=opt_state, rng_key=seam)
 
+    def _graphed(self, device: torch.device) -> bool:
+        """Whether a run on ``device`` replays its step from a CUDA graph:
+        on a card, always (the eager loop stays the CPU path)."""
+        return device.type == "cuda"
+
+    def _step(self, params, opt_state, seam, args, kwargs):
+        """One ELBO gradient step from ``params`` and ``opt_state``, the
+        particles drawing from ``seam``: ``((params, opt_state), loss)``."""
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        with torch.enable_grad():
+            loss_val = self.loss.loss(seam, leaves, self.model, self.guide, *args, **kwargs)
+            grads = torch.autograd.grad(loss_val, list(leaves.values()))
+        grads = dict(zip(leaves, grads))
+        updates, opt_state = self.optim.update(grads, opt_state, params)
+        return (_apply_updates(params, updates), opt_state), loss_val.detach()
+
     def update(self, state: SVIState, *args, **kwargs):
         """One ELBO gradient step; the particle draws from the state's seam."""
-        params = {k: v.detach().requires_grad_() for k, v in state.params.items()}
-        with torch.enable_grad():
-            loss_val = self.loss.loss(state.rng_key, params, self.model, self.guide, *args, **kwargs)
-            grads = torch.autograd.grad(loss_val, list(params.values()))
-        grads = dict(zip(params, grads))
-        updates, opt_state = self.optim.update(grads, state.opt_state, state.params)
-        return SVIState(_apply_updates(state.params, updates), opt_state, state.rng_key), loss_val.detach()
+        (params, opt_state), loss_val = self._step(state.params, state.opt_state, state.rng_key, args, kwargs)
+        return SVIState(params, opt_state, state.rng_key), loss_val
+
+    def _draw_signature(self, params, device, args, kwargs) -> list:
+        """The guide's draws in one call (kind, shape, dtype), from a trace
+        of the guide at ``params`` that draws from a throwaway generator on
+        ``device``, not from the run's seam."""
+        recorder = RecordingDraws(Draws(torch.Generator(device=device).manual_seed(0)))
+        with handlers.block(), handlers.trace(), handlers.seed(recorder), handlers.substitute(params):
+            self.guide(*args, **kwargs)
+        return recorder.calls
 
     def run(
         self,
@@ -386,17 +420,39 @@ class SVI:
         progress_bar: bool = False,
         **model_kwargs,
     ) -> SVIRunResult:
-        """Optimize for ``num_steps`` (a host loop; the losses stay on the
-        device until read)."""
+        """Optimize for ``num_steps``; the losses stay on the device until
+        read.
+
+        On a card the step is captured into one CUDA graph at the first
+        step and replayed at every step (the module docstring); its draws
+        are taken from the state's seam first, in the guide's order (the
+        signature that ``init`` recorded, or for an ``init_state`` from
+        elsewhere one traced without drawing from the seam). On CPU
+        tensors :meth:`update` runs in a host loop."""
         args = model_kwargs.pop("_args", ())
         state = init_state if init_state is not None else self.init(rng_key, _args=args, **dict(model_kwargs))
+        n_steps = int(num_steps)
         if progress_bar:
-            print(f"[dynode_tpu_torch.SVI] running {num_steps} steps...")
-        losses = []
-        for _ in range(int(num_steps)):
-            state, loss_val = self.update(state, *args, **model_kwargs)
-            losses.append(loss_val)
-        losses = torch.stack(losses) if losses else torch.zeros(0)
+            print(f"[dynode_tpu_torch.SVI] running {n_steps} steps...")
+        device = next(iter(state.params.values())).device
+        self.graphs = []
+        if n_steps and self._graphed(device):
+            signature = self._signature
+            if signature is None:
+                signature = self._draw_signature(state.params, device, args, model_kwargs)
+
+            def step(carry, draws):
+                return self._step(*carry, GivenDraws(draws, device), args, model_kwargs)
+
+            carry, losses = self._replay({0: step}, None, (state.params, state.opt_state), state.rng_key, signature,
+                                         None, n_steps)
+            state = SVIState(*carry, state.rng_key)
+        else:
+            losses = []
+            for _ in range(n_steps):
+                state, loss_val = self.update(state, *args, **model_kwargs)
+                losses.append(loss_val)
+            losses = torch.stack(losses) if losses else torch.zeros(0)
         if progress_bar and len(losses):
             print(f"[dynode_tpu_torch.SVI] final loss {float(losses[-1]):.4f}")
         return SVIRunResult(params=state.params, state=state, losses=losses)
@@ -404,6 +460,72 @@ class SVI:
     def get_params(self, state: SVIState):
         """Parameter values from an :class:`SVIState`."""
         return state.params
+
+    def _bank_fns(self, device, home, args, kwargs, final_particles: int):
+        """The bank's step ``((params, opt_state), draws) -> ((params,
+        opt_state), losses)`` and final ELBO ``(params, draws) -> elbos``,
+        one start's mapped over the starts with ``torch.func.vmap``, with
+        the model's tensors on ``device`` (copied there from ``home``)."""
+        model, guide, loss = self.model, self.guide, self.loss
+        if device == home:
+            a, kw = args, kwargs
+        else:
+            a, kw = pytree.tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, (args, kwargs))
+
+        def one_step(state, noise):
+            params, opt_state = state
+
+            def neg_elbo(p):
+                return loss.loss(GivenDraws(noise, device), p, model, guide, *a, **kw)
+
+            grads, loss_val = torch.func.grad_and_value(neg_elbo)(params)
+            updates, opt_state = self.optim.update(grads, opt_state, params)
+            return (_apply_updates(params, updates), opt_state), loss_val
+
+        def final_elbo(params, noise):
+            draws = GivenDraws(noise, device)
+            losses = [loss.loss(draws, params, model, guide, *a, **kw) for _ in range(final_particles)]
+            return -torch.mean(torch.stack(losses))
+
+        return torch.func.vmap(one_step), torch.func.vmap(final_elbo)
+
+    def _replay(self, steps: dict, plan, state, seam, signature, n: Optional[int], n_steps: int):
+        """``n_steps`` steps replayed on the card: one :class:`~.graphs.GraphedStep`
+        of ``steps[s]`` a shard ``s`` of ``plan`` (``steps[0]`` without a
+        mesh), captured on the shard's card at the first step, replayed at
+        every step and released at the end. Each step's draws of
+        ``signature`` are made for the whole bank of ``n`` (one start: None)
+        on the seam's device and split to the shards outside the graphs;
+        each shard's state stays in its graph's buffers, and the shards'
+        states and losses are gathered once, at the end. Returns ``(state,
+        losses)`` on the seam's device, the steps on the losses' last axis."""
+        def cut(tree, s):
+            if plan is None:
+                return tree
+            return pytree.tree_map(lambda x: split(x, plan, s) if isinstance(x, torch.Tensor) else x, tree)
+
+        def each(fn):
+            return {0: fn(0)} if plan is None else run_shards(plan, fn)
+
+        graphs = {s: GraphedStep(step) for s, step in steps.items()}
+        self.graphs = list(graphs.values())
+        per_step = getattr(self.loss, "num_particles", 1)
+        losses = {}
+        try:
+            each(lambda s: graphs[s].start(cut(state, s)))
+            for i in range(n_steps):
+                draws = bank_draws(seam, signature, n, per_step)
+                for s, loss_val in each(lambda s: graphs[s](cut(draws, s))).items():
+                    if s not in losses:
+                        losses[s] = loss_val.new_empty(tuple(loss_val.shape) + (n_steps,))
+                    losses[s][..., i].copy_(loss_val)
+        finally:
+            for graph in graphs.values():
+                graph.release()
+        if plan is None:
+            return graphs[0].state, losses[0]
+        whole = gather_shards(plan, {s: (graphs[s].state, losses[s]) for s in steps}, dim=0)
+        return pytree.tree_map(lambda x: x.to(seam.device), whole)
 
     def run_multistart(
         self,
@@ -444,6 +566,12 @@ class SVI:
         states and losses come back concatenated on the seam's device. So a
         split bank takes the unsplit bank's draws. ``num_starts`` must
         divide over the axis (``ValueError`` before anything runs).
+
+        On a card the bank's step is captured into one CUDA graph at the
+        first step (one a shard, on the shard's card, with ``mesh=``) and
+        replayed at every step; the draws, the split and the gather stay
+        outside the graphs (:meth:`_replay`). The final ELBO runs eagerly,
+        once a run.
         """
         args = model_kwargs.pop("_args", ())
         n = int(num_starts)
@@ -461,36 +589,11 @@ class SVI:
             else:
                 params0[name] = v.expand((n,) + tuple(v.shape)).clone()
 
-        model, guide, loss = self.model, self.guide, self.loss
-
-        def bank_fns(device):
-            """The bank's step and final ELBO with the model's tensors on ``device``."""
-            if device == seam.device:
-                a, kw = args, model_kwargs
-            else:
-                a, kw = pytree.tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x,
-                                        (args, model_kwargs))
-
-            def one_step(params, opt_state, noise):
-                def neg_elbo(p):
-                    return loss.loss(GivenDraws(noise, device), p, model, guide, *a, **kw)
-
-                grads, loss_val = torch.func.grad_and_value(neg_elbo)(params)
-                updates, opt_state = self.optim.update(grads, opt_state, params)
-                return _apply_updates(params, updates), opt_state, loss_val
-
-            def final_elbo(params, noise):
-                draws = GivenDraws(noise, device)
-                losses = [loss.loss(draws, params, model, guide, *a, **kw) for _ in range(final_particles)]
-                return -torch.mean(torch.stack(losses))
-
-            return torch.func.vmap(one_step), torch.func.vmap(final_elbo)
-
+        places = {0: seam.device} if plan is None else {s: plan.place(s) for s in plan.local}
+        fns = {s: self._bank_fns(dev, seam.device, args, model_kwargs, final_particles) for s, dev in places.items()}
         if plan is None:
-            bank_step, bank_elbo = bank_fns(seam.device)
+            bank_step, bank_elbo = fns[0]
         else:
-            fns = {s: bank_fns(plan.place(s)) for s in plan.local}
-
             def on_shards(which):
                 def run(*trees):
                     def shard(s):
@@ -506,17 +609,22 @@ class SVI:
 
         if progress_bar:
             print(f"[dynode_tpu_torch.SVI] running {n} starts x {num_steps} steps...")
-        params = params0
-        opt_state = torch.func.vmap(self.optim.init)(params)
-        per_step = getattr(loss, "num_particles", 1)
-        losses = []
-        for _ in range(int(num_steps)):
-            noise = bank_draws(seam, self._signature, n, per_step)
-            params, opt_state, loss_val = bank_step(params, opt_state, noise)
-            params = {k: v.detach() for k, v in params.items()}
-            opt_state = torch.utils._pytree.tree_map(lambda x: x.detach(), opt_state)
-            losses.append(loss_val.detach())
-        losses_all = torch.stack(losses, dim=1) if losses else torch.zeros((n, 0))
+        n_steps = int(num_steps)
+        state = (params0, torch.func.vmap(self.optim.init)(params0))
+        per_step = getattr(self.loss, "num_particles", 1)
+        self.graphs = []
+        if n_steps and all(self._graphed(dev) for dev in places.values()):
+            state, losses_all = self._replay({s: f[0] for s, f in fns.items()}, plan, state, seam, self._signature, n,
+                                             n_steps)
+        else:
+            losses = []
+            for _ in range(n_steps):
+                noise = bank_draws(seam, self._signature, n, per_step)
+                state, loss_val = bank_step(state, noise)
+                state = pytree.tree_map(lambda x: x.detach(), state)
+                losses.append(loss_val.detach())
+            losses_all = torch.stack(losses, dim=1) if losses else torch.zeros((n, 0))
+        params = state[0]
         noise = bank_draws(seam, self._signature, n, final_particles * per_step)
         with torch.no_grad():
             elbos = bank_elbo(params, noise)

@@ -339,15 +339,18 @@ class GivenDraws:
         return self._next(shape)
 
 
-def bank_draws(seam, signature, n: int, repeats: int = 1) -> list:
+def bank_draws(seam, signature, n: Optional[int], repeats: int = 1) -> list:
     """Draws of ``signature`` (``RecordingDraws.calls``) for a bank of ``n``
     members, ``repeats`` times in a row: one ``(n, *shape)`` tensor per
     call, from ``seam`` in the order of the calls (so a seam that hands
-    each member its own stream gives member i its i-th slices)."""
+    each member its own stream gives member i its i-th slices). With ``n``
+    None, the calls' own shapes: the draws of one member, as it makes
+    them."""
+    lead = () if n is None else (n,)
     out = []
     for _ in range(repeats):
         for kind, shape, dtype in signature:
-            out.append(getattr(seam, kind)((n,) + shape, dtype, seam.device))
+            out.append(getattr(seam, kind)(lead + shape, dtype, seam.device))
     return out
 
 

@@ -8,7 +8,8 @@ projection to a longer horizon with obs_data=None::
     python examples_torch/sir_infer_parameters.py [--device cpu]
 
 On the card the NUTS fit's potential and gradient are captured into a
-CUDA graph and replayed at every leaf; the SVI fit runs eagerly.
+CUDA graph and replayed at every leaf, and the SVI fit's step into
+another, replayed at every step.
 """
 
 import _bootstrap

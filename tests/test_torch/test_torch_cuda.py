@@ -718,6 +718,117 @@ def test_an_svi_step_on_the_card_matches_the_cpu(cuda):
         assert _rel(out["cuda"][1][k].cpu(), v) <= 1e-10
 
 
+def _svi_runs(dev, graphed: bool, mesh=None, model=None, obs=None, guide=None):
+    """``SVI.run`` (3 steps) and ``SVI.run_multistart`` (8 starts, 3 steps,
+    2 final particles) of the fit at 4 days on ``dev``, replayed from their
+    CUDA graphs or (``graphed`` False) through the eager loop: (run result,
+    its graphs, bank result, the bank's last optimizer state, its graphs)."""
+    from torch.utils._pytree import tree_map
+
+    import chip_smoke
+    from dynode_tpu_torch.infer import SVI, Adam, AutoMultivariateNormal, Trace_ELBO
+
+    if model is None:
+        obs = torch.as_tensor(chip_smoke.bench_nuts_obs()[:4], device=dev)
+        model = chip_smoke.fit_model(days=4, device=dev)
+    svi = SVI(model, (guide or AutoMultivariateNormal)(model), Adam(0.1), Trace_ELBO())
+    svi._graphed = lambda device: graphed
+    one = svi.run(torch.Generator(device=dev).manual_seed(0), 3, obs=obs)
+    one_graphs = svi.graphs
+    opt, plain = [], svi._bank_fns
+
+    def recording(*args, **kwargs):
+        step, elbo = plain(*args, **kwargs)
+
+        def step_seen(state, noise):
+            new, loss = step(state, noise)
+            opt.append(new[1])
+            return new, loss
+
+        return step_seen, elbo
+
+    svi._bank_fns = recording
+    bank = svi.run_multistart(torch.Generator(device=dev).manual_seed(1), num_steps=3, num_starts=8,
+                              final_particles=2, mesh=mesh, obs=obs)
+    shards = 1 if mesh is None else 2
+    last = opt[-shards:] if not graphed else [g.state[1] for g in svi.graphs]
+    return one, one_graphs, bank, tree_map(lambda *x: torch.cat(x), *last), svi.graphs
+
+
+def _same(a, b) -> bool:
+    from torch.utils._pytree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@pytest.mark.cuda
+def test_replayed_svi_runs_equal_the_eager_loop_bit_for_bit(cuda):
+    """``SVI.run`` and ``SVI.run_multistart`` of the fit (4 days, float32)
+    replay one CUDA graph a run, captured at the first step, and equal the
+    eager loop on the card bit for bit over 3 steps: losses, parameters,
+    Adam state and final ELBOs; each graph replayed every step and was
+    released when its run ended."""
+    one_e, graphs_e, bank_e, opt_e, bank_graphs_e = _svi_runs(cuda, False)
+    one_g, graphs_g, bank_g, opt_g, bank_graphs_g = _svi_runs(cuda, True)
+    assert graphs_e == [] and bank_graphs_e == []
+    assert torch.equal(one_g.losses, one_e.losses) and one_g.losses.device.type == "cuda"
+    assert _same(one_g.params, one_e.params) and _same(one_g.state.opt_state, one_e.state.opt_state)
+    assert int(one_g.state.opt_state.count) == 3
+    assert torch.equal(bank_g.all_losses, bank_e.all_losses) and bank_g.all_losses.shape == (8, 3)
+    assert _same(bank_g.all_params, bank_e.all_params) and _same(opt_g, opt_e)
+    assert torch.equal(bank_g.final_elbos, bank_e.final_elbos) and bool(torch.isfinite(bank_g.final_elbos).all())
+    for graph in graphs_g + bank_graphs_g:
+        assert graph.replays == 3 and graph.device.type == "cuda" and graph.capture_s is not None
+        assert graph.graph is None and graph.draws is None and graph.constants == {}  # released
+
+
+@pytest.mark.cuda
+def test_svi_bank_split_over_one_card_twice_graphs_each_shard(cuda):
+    """``run_multistart(mesh=)`` over the card listed twice: one graph a
+    shard, each replayed every step, equal to the eager split and to the
+    unsplit bank bit for bit."""
+    mesh = _split_mesh(cuda, "one_card_twice", "start")
+    _, _, whole, whole_opt, whole_graphs = _svi_runs(cuda, True)
+    _, _, eager, eager_opt, _ = _svi_runs(cuda, False, mesh=mesh)
+    _, _, split, split_opt, graphs = _svi_runs(cuda, True, mesh=mesh)
+    assert len(whole_graphs) == 1 and len(graphs) == 2 and all(g.replays == 3 for g in graphs)
+    for ref, ref_opt in ((eager, eager_opt), (whole, whole_opt)):
+        assert torch.equal(split.all_losses, ref.all_losses) and _same(split.all_params, ref.all_params)
+        assert torch.equal(split.final_elbos, ref.final_elbos) and _same(split_opt, ref_opt)
+
+
+@pytest.mark.cuda
+def test_svi_model_that_reads_the_host_raises_and_never_steps_eagerly(cuda):
+    """An SVI model that reads a card tensor on the host cannot be captured:
+    ``run``, ``run_multistart`` and ``SVIProcess.infer`` raise
+    ``GraphCaptureError`` naming its line, and no step is taken."""
+    from dynode_tpu_torch import dist
+    from dynode_tpu_torch.infer import SVIProcess, handlers
+    from dynode_tpu_torch.infer.graphs import GraphCaptureError
+
+    def reads_the_host(obs):
+        mu = handlers.sample("mu", dist.Normal(torch.zeros((), device=obs.device), 1.0))
+        scale = 2.0 if float(obs.abs().max()) > 1e30 else 1.0
+        handlers.sample("obs", dist.Normal(mu, scale), obs=obs)
+
+    obs = torch.as_tensor(np.random.default_rng(2).normal(0.5, 1.0, 32), dtype=torch.float32, device=cuda)
+    match = r"test_torch_cuda\.py:\d+ \(scale = 2\.0 if float\(obs"
+    for starts in (1, 4):
+        proc = SVIProcess(numpyro_model=reads_the_host, num_iterations=3, num_samples=4, num_starts=starts,
+                          progress_bar=False)
+        with pytest.raises(GraphCaptureError, match=match):
+            proc.infer(obs=obs)
+        assert proc._inference_state is None
+    from dynode_tpu_torch.infer import SVI, Adam, AutoNormal, Trace_ELBO
+
+    svi = SVI(reads_the_host, AutoNormal(reads_the_host), Adam(0.1), Trace_ELBO())
+    for run in (lambda: svi.run(0, 3, obs=obs), lambda: svi.run_multistart(0, 3, 4, obs=obs)):
+        with pytest.raises(GraphCaptureError, match=match):
+            run()
+        assert [g.replays for g in svi.graphs] == [0] and svi.graphs[0].graph is None
+
+
 def _split_mesh(dev, where, axis="ensemble"):
     """``[cuda:0] * 2`` (``"one_card_twice"``) or every visible card
     (``"every_card"``, skipped below two cards)."""
