@@ -135,14 +135,17 @@ builds; Triton's JIT), then:
     path; (c) ``bench_nuts.py``'s ``bench_svi`` row: ``SVI(...,
     AutoMultivariateNormal, Adam(0.1), Trace_ELBO()).run_multistart`` at
     1,024 starts, ``SVI_EAGER_STEPS`` steps through the eager loop, then,
-    from the same seed, ``SVI_STEPS`` (50) of the row's 300 steps
+    from the same seed, ``SVI_STEPS`` (10) of the row's 300 steps
     replayed from the bank step's CUDA graph (the row's 300 extrapolated:
     all 300 took the script too close to its time limit), whose first
     losses must equal the eager ones bit for bit, then ``Predictive(guide, params,
     num_samples=2000)``: final ELBOs finite on 99% of the starts, start
     0's loss falls; the capture's wall (warm-up and capture), the eager
     and replayed steps' walls and ELBO-steps per second, the final ELBO's
-    wall and the row's wall; on 4 starts, 3 steps and 4 days in float64
+    wall and the row's wall; the same fit again on the same ``SVI`` and
+    ``obs``, from the kept bank (no capture), equal to the first run bit
+    for bit and leaving its result as it was, with both walls and the
+    memory reserved and allocated with the kept bank; on 4 starts, 3 steps and 4 days in float64
     the card's parameters (through the graph) equal the CPU's within
     1e-10 given the same draws. Phase 16 takes ``SLICE_BUDGET_S`` or
     less;
@@ -159,7 +162,7 @@ builds; Triton's JIT), then:
     ``simulate_ensemble`` of one member against Tsit5 (2e-5); a gradient
     through TRBDF2 against central differences; (b) 4,096 members of the
     stiff SEIRS in float32 over ``STIFF_ENSEMBLE_DAYS``, batch-leading:
-    every result 0, 8 members held
+    every result 0, ``STIFF_PICK`` (4) members held
     to single-member solves (1e-5, equal steps), wall, steps and the
     device's idle share; (c) the four split kernel entries (#1, #3, #4,
     #5) at ``obs_max``, ``adaptive_obs``, ``seip_c`` and
@@ -212,8 +215,9 @@ builds; Triton's JIT), then:
     graph of its step, and, at the example's own width and window, one
     gradient of each sampler's bank and one step of each SVI fit: eager,
     captured and replayed (bit for bit with the eager call), with the wall
-    extrapolated to the example's own counts. Phase 19 takes
-    ``EXAMPLES_BUDGET_S`` or less.
+    extrapolated to the example's own counts, the graphs' memory, and one
+    fit's ``MCMC.run`` repeated on the same arguments from the kept cache
+    entry, capturing nothing. Phase 19 takes ``EXAMPLES_BUDGET_S`` or less.
 
 The last two lines are a JSON object per kernel and
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -301,8 +305,8 @@ SVI_STARTS = 1024  # phase 16 (c): bench_nuts.py's bench_svi width
 SVI_EAGER_STEPS = 2  # of its 300 through the eager loop: the reference of the graphed run's first losses
 # of the row's own 300 steps, replayed from the bank step's CUDA graph: all 300 held phase 16's gate (179.0 s)
 # but took the whole script to 1,092 s of its 1,200 s on an H100 80GB HBM3 at 700 W, whose hosts vary by a
-# third; the row's 300 are extrapolated from the replays
-SVI_STEPS = 50
+# third; the row's 300 are extrapolated from the replays, and a second run of as many on the kept bank follows
+SVI_STEPS = 10  # cut from 50 to pay for the second run on the kept bank
 SVI_SAMPLES = 2000  # Predictive(guide, params, num_samples=...), as bench_svi
 SVI_CHECK = (4, 3, 4)  # starts, steps, days: the card against the CPU in float64
 MIN_FINITE_ELBO = 0.99  # share of starts whose final ELBO is finite
@@ -326,9 +330,10 @@ MS_STIFF = ((1e-7, 1e-9), (1e-9, 1e-11), 1024)  # TRBDF2, Tsit5 tolerances, TRBD
 TOL_MS_STIFF = 2e-5  # max |d| / max |ref| per compartment
 GRAD_DAYS = 30  # the gradient's horizon through TRBDF2, at a constant dt = DT (central differences see the same grid)
 # bench_nuts.py's chain width; members held to single-member solves (1.4 s each, host-bound: the script's time)
-STIFF_ENSEMBLE, STIFF_PICK = 4096, 8
+STIFF_ENSEMBLE, STIFF_PICK = 4096, 4  # 4 picks, not 8, pay for the repeated runs of the kept caches
 STIFF_ENSEMBLE_DAYS = 30  # (b) and its split in (d): cut from STIFF_DAYS to hold phase 17's budget on slower hosts
-MS_STIFF_DAYS = 50  # (a)'s multi-strain TRBDF2 solve: cut from DAYS for the same reason (100 before phase 19 came)
+MS_STIFF_DAYS = 30  # (a)'s multi-strain TRBDF2 solve: cut from DAYS for the same reason, and to pay for phase 19
+# and the repeated runs of the kept caches
 TOL_STIFF_MEMBER = 1e-5
 RAGGED_ADAPTIVE = 2 * 32800  # 32,800 members a shard: not a multiple of block_b 64
 TOL_RAGGED = TOL_BF16  # a ragged split of the adaptive kernel against the unsplit one, bf16 c-row saves (the main
@@ -369,6 +374,9 @@ GRAPH_REPLAYS = 5  # (d): replays of each sampler's bank graph at the example's 
 #: (d): the fits whose banks each worker process measures at their own widths and windows, beside (a)-(c)
 BANK_WORKERS = (("seip_fit",), ("ensemble_scenarios", "hierarchical_strains", "svi_multistart"),
                 ("sir_infer_parameters", "model_selection"))
+#: (d): the fit whose ``MCMC.run`` the last worker repeats on the same model and arguments (the kept entry's
+#: second run), at its width and own window, ``FIT_CUTS``' counts and depth: NUTS at 64 chains
+REPEAT_FIT = "ensemble_scenarios"
 #: (d): the name of each fit's window in its counts
 FIT_WINDOW = {"ensemble_scenarios": "fit_days", "hierarchical_strains": "duration", "seip_fit": "fit_days",
               "sir_infer_parameters": "tf_fit", "model_selection": "tf", "svi_multistart": "tf_fit"}
@@ -1521,8 +1529,8 @@ def slice_phase(dev, smi: str, fit) -> dict:
         result = svi.run_multistart(SEED, num_steps=SVI_STEPS, num_starts=SVI_STARTS, obs=obs)
         torch.cuda.synchronize()
         svi_s, done = time.perf_counter() - t, time.perf_counter()
-    check(len(graphs) == 1 and graphs[0].replays == SVI_STEPS and graphs[0].graph is None,
-          "(c) the SVI bank did not replay one released graph a step")
+    check(len(graphs) == 1 and graphs[0].replays == SVI_STEPS and graphs[0].graph is not None,
+          "(c) the SVI bank did not replay one kept graph a step")
     g = graphs[0]
     capture_s = g.warmup_s + g.capture_s
     step_s = statistics.median(b - a for a, b in zip(g.ends, g.ends[1:]))  # the replayed steps, draws included
@@ -1552,6 +1560,28 @@ def slice_phase(dev, smi: str, fit) -> dict:
     check(float(start0[-1]) < float(start0[0]), "(c) start 0's loss did not fall")
     check(post["r0_scales"].shape == (SVI_SAMPLES, 3) and bool(torch.isfinite(post["r0_scales"]).all()),
           "(c) Predictive draws")
+    kept_mem = (torch.cuda.memory_reserved(), torch.cuda.memory_allocated())
+    first_params = {k: v.clone() for k, v in result.all_params.items()}
+    # the same fit again on the same SVI and obs: the kept bank's graph, no capture
+    with svi_graphs() as again_graphs:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        again = svi.run_multistart(SEED, num_steps=SVI_STEPS, num_starts=SVI_STARTS, obs=obs)
+        torch.cuda.synchronize()
+        again_s = time.perf_counter() - t
+    again_equal = (torch.equal(again.all_losses, result.all_losses) and torch.equal(again.final_elbos,
+                                                                                   result.final_elbos)
+                   and all(torch.equal(again.all_params[k], v) for k, v in first_params.items()))
+    not_aliased = all(torch.equal(result.all_params[k], v) for k, v in first_params.items())
+    print(f"      the same fit again on the same SVI and obs (the kept bank): {again_s:.1f} s against the first run's "
+          f"{svi_s:.1f} s; graphs captured {len(again_graphs)}, the kept graph's captures {g.captures} and replays "
+          f"{g.replays}; equal to the first run bit for bit: {again_equal}; the first result unchanged: "
+          f"{not_aliased}; with the kept bank {kept_mem[0] / 2**30:.2f} GiB reserved, {kept_mem[1] / 2**30:.2f} GiB "
+          f"allocated [{smi}]")
+    check(not again_graphs and g.captures == 1 and g.replays == 2 * SVI_STEPS,
+          "(c) the second run on the kept bank captured a graph")
+    check(again_equal, "(c) the second run on the kept bank differs from the first")
+    check(not_aliased, "(c) the second run overwrote the first result's parameters")
     t = time.perf_counter()
     svi_err = svi_card_vs_cpu(dev, obs)
     print(f"      card (through the graph) vs CPU, {SVI_CHECK[0]} starts x {SVI_CHECK[1]} steps, {SVI_CHECK[2]} days, "
@@ -2412,12 +2442,51 @@ def bank_worker(names, dev, conn) -> None:
             for stage, _, width, _, _ in FIT_OWN[name]:
                 measure = svi_capture if stage == "svi" else bank_capture
                 held[(name, stage)] = measure(model, kwargs, width, dev)
+                held[(name, stage)]["memory"] = (torch.cuda.memory_reserved(dev), torch.cuda.memory_allocated(dev))
+        if names == BANK_WORKERS[-1]:
+            repeated = repeat_fit(REPEAT_FIT, dev)
         conn.send("captured")
         conn.recv()
-        conn.send({key: bank_replays(m) for key, m in held.items()})
+        replies = {key: bank_replays(m) for key, m in held.items()}
+        if names == BANK_WORKERS[-1]:
+            replies[("repeat", REPEAT_FIT)] = repeated
+        conn.send(replies)
     except BaseException:
         conn.send(traceback.format_exc())
         raise
+
+
+def repeat_fit(name: str, dev) -> dict:
+    """``MCMC.run`` of fit ``name``'s model (NUTS at the width of its first
+    sampler in ``FIT_OWN``, ``FIT_CUTS``' counts and depth, float32) over
+    the example's own window, twice on the same model and argument
+    objects: the first run traces and captures, the second is served the
+    kept entry. The walls of both, each run's graph and capture count,
+    whether every draw is finite, and the memory reserved and allocated
+    with the entry kept (``torch.cuda`` totals of the process)."""
+    import torch
+
+    from dynode_tpu_torch.infer import MCMC, NUTS
+
+    mod = example_module(name)
+    (_, model, kwargs), *_ = fit_models(name, mod, dev, mod.COUNTS[FIT_WINDOW[name]], torch.float32)
+    width, cut = FIT_OWN[name][0][2], FIT_CUTS[name]
+    walls, graphs, captures, finite = [], [], [], True
+    for seed in (SEED, SEED + 1):
+        mc = MCMC(NUTS(model, max_tree_depth=cut["max_tree_depth"]), num_warmup=cut["warmup"],
+                  num_samples=cut["samples"], num_chains=width)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mc.run(torch.Generator(device=dev).manual_seed(seed), **kwargs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        graphs.append(mc.graph)
+        captures.append(mc.graph.captures)
+        finite = finite and all(bool(torch.isfinite(v).all()) for v in mc.get_samples().values())
+    return {"walls": walls, "captures": captures, "same_graph": graphs[0] is graphs[1],
+            "replays": graphs[1].replays, "capture_s": graphs[0].warmup_s + graphs[0].capture_s, "finite": finite,
+            "width": width, "days": mod.COUNTS[FIT_WINDOW[name]],
+            "memory": (torch.cuda.memory_reserved(dev), torch.cuda.memory_allocated(dev))}
 
 
 def log_density_card_vs_cpu(name: str, mod, dev) -> list:
@@ -2559,13 +2628,20 @@ def examples_phase(dev, smi: str) -> dict:
     processes of ``BANK_WORKERS`` (:func:`bank_worker`), started with the
     phase: their eager calls and captures, host-bound as (a) to (c) are,
     run beside those on other cores; their replays run after them, one
-    worker at a time, with the card otherwise idle. The examples' own drift and ranking
+    worker at a time, with the card otherwise idle. Each worker's memory
+    (reserved and allocated) is printed as it holds its graphs, and the
+    main process's after each fit with its kept ``MCMC`` cache entries.
+    The last worker also runs ``REPEAT_FIT``'s ``MCMC.run`` twice on the
+    same model and argument objects at its width and own window
+    (:func:`repeat_fit`): the second run is served the kept entry, with no
+    capture (a gate), and both walls are printed. The examples' own drift and ranking
     asserts need their own counts and are not run here. Phase 19 takes
     ``EXAMPLES_BUDGET_S`` or less.
     Returns the launches of kernels #2 and #5 on this path.
     """
     import torch
 
+    from dynode_tpu_torch.infer import mcmc as mcmc_cache
     from dynode_tpu_torch.ops import multistrain as ms
     from dynode_tpu_torch.ops import seip as tsp
 
@@ -2619,14 +2695,18 @@ def examples_phase(dev, smi: str) -> dict:
             cut = FIT_CUTS[name]
             with counting_gradients() as seen, svi_graphs() as steps:
                 out = mod.run(dev, overrides={**cut, FIT_WINDOW[name]: EXAMPLE_FIT_DAYS})
+            torch.cuda.synchronize()
+            print(f"      (d) {name}'s fit done: {len(mcmc_cache._EXEC_CACHE)} kept MCMC cache entries, "
+                  f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
             check(len(seen["graphs"]) > 0 and all(g.replays > 0 for g in seen["graphs"]),
                   f"(d) {name}: a sampler's bank did not run through its CUDA graph")
             for stage, what, width, own, each in FIT_OWN[name]:
                 if stage == "svi":
                     done = cut.get("svi_iterations", cut.get("iterations"))
                     grads = sum(g.replays for g in steps)
-                    check(len(steps) > 0 and grads == done and all(g.graph is None for g in steps),
-                          f"(d) {name}: the SVI fit did not replay its step's released CUDA graph")
+                    check(len(steps) > 0 and grads == done and all(g.captures == 1 for g in steps),
+                          f"(d) {name}: the SVI fit did not replay its step's CUDA graph")
                 else:
                     done = cut["draws"] if stage == "chees" else (cut["warmup"] + cut["samples"])
                     done *= 2 if name == "model_selection" else 1
@@ -2730,6 +2810,16 @@ def examples_phase(dev, smi: str) -> dict:
             banks.update(reply)
         print(f"      (d) the banks: {len(BANK_WORKERS)} workers' captures beside (a)-(c), {waited:.1f} s waited for "
               f"after them; the replays {time.perf_counter() - t:.1f} s")
+        r = banks.pop(("repeat", REPEAT_FIT))
+        print(f"  (d) {REPEAT_FIT}'s MCMC.run (NUTS, {r['width']} chains, {FIT_CUTS[REPEAT_FIT]['warmup']} + "
+              f"{FIT_CUTS[REPEAT_FIT]['samples']}, depth {FIT_CUTS[REPEAT_FIT]['max_tree_depth']}, its own "
+              f"{r['days']} days) twice on the same model and arguments, in a worker: {r['walls'][0]:.2f} s with the "
+              f"trace and capture (warm-up + capture {r['capture_s']:.2f} s), then {r['walls'][1]:.2f} s from the "
+              f"kept entry; captures {r['captures'][0]} then {r['captures'][1]}, the same graph: {r['same_graph']}, "
+              f"{r['replays']} replays in all; draws finite: {r['finite']}; {r['memory'][0] / 2**30:.2f} GiB "
+              f"reserved, {r['memory'][1] / 2**30:.2f} GiB allocated in the worker then [{smi}]")
+        check(r["captures"] == [1, 1] and r["same_graph"], f"(d) {REPEAT_FIT}: the repeated run captured a graph")
+        check(r["finite"], f"(d) {REPEAT_FIT}: non-finite draws in the repeated runs")
         for name, stage, what, width, own, each, done, grads, wall, own_days in cut_runs:
             m, svi = banks[(name, stage)], stage == "svi"
             total = m["replay_s"] * own * each + m["capture_s"]
@@ -2739,7 +2829,9 @@ def examples_phase(dev, smi: str) -> dict:
                   f"{m['eager_s']:.2f} s eager, captured in {m['capture_s']:.2f} s, replayed in {m['replay_s']:.3f} s "
                   f"(median of {GRAPH_REPLAYS}; bit for bit with the eager call: {m['equal']}); at the example's own "
                   f"{own} x {'at most ' if each > 1 and stage != 'chees' else ''}{each:.1f} "
-                  f"{'steps' if svi else 'gradients'}: {total:,.0f} s ({total / 3600:.2f} h) [{smi}]")
+                  f"{'steps' if svi else 'gradients'}: {total:,.0f} s ({total / 3600:.2f} h); its worker held "
+                  f"{m['memory'][0] / 2**30:.2f} GiB reserved, {m['memory'][1] / 2**30:.2f} GiB allocated with its "
+                  f"graphs up to this one [{smi}]")
             check(m["equal"], f"(d) {name} {what}: the graph's replay differs from the eager call")
 
         phase_s = time.perf_counter() - t_phase

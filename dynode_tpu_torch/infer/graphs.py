@@ -8,14 +8,22 @@ host syncs raising, inside :func:`~dynode_tpu_torch._device.keep_constants`
 so that the constants the warm-up copied to the card are read, not copied,
 by the graph. A capture that fails raises :class:`GraphCaptureError`
 naming the user's line; nothing then runs eagerly in its place.
+
+Both keep their graphs across runs in caches of JAX's kind (``MCMC``'s
+``_EXEC_CACHE``, ``SVI``'s ``_multistart_cache``): :func:`cached` finds
+an entry by its key, the identity of the objects it was built from and
+the fingerprints of their arrays (:func:`fingerprint`), and :func:`keep`
+stores one, dropping the least recently used past the cache's size.
 """
 
 import contextlib
 import time
 import traceback
 import warnings
+from collections import OrderedDict
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
@@ -96,6 +104,60 @@ def capture(device: torch.device, constants: dict, warmup: Callable, body: Calla
     return graph, warm, static, warmup_s, capture_s
 
 
+def fingerprint(x):
+    """Content tag of an argument leaf: a tensor's shape, dtype, device and
+    version counter (which every in-place write advances; an inference
+    tensor, made under ``torch.inference_mode``, has none and is tagged
+    without it); a numpy array's shape, dtype and JAX's strided probe (8
+    strided elements and the last), which catches realistic in-place
+    changes; None for any other leaf."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype, str(x.device), None if x.is_inference() else x._version)
+    if isinstance(x, np.ndarray):
+        flat = x.reshape(-1)
+        if flat.size == 0:
+            return (x.shape, x.dtype.str, b"")
+        stride = max(1, flat.size // 8)
+        probe = np.concatenate([flat[::stride][:8], flat[-1:]])
+        return (x.shape, x.dtype.str, probe.tobytes())
+    return None
+
+
+def cached(cache: OrderedDict, key, objects: list, fps: list, what: str) -> Optional[dict]:
+    """The entry of ``cache`` under ``key``, made the most recently used,
+    when it was built from ``objects`` (each the same object: ``is``, as a
+    recycled id may hide another) and its arrays' fingerprints are still
+    ``fps``; else None. An array changed in place (same objects, other
+    fingerprints) warns: its entry is never served stale."""
+    entry = cache.get(key)
+    if entry is None or any(a is not b for a, b in zip(entry["objects"], objects, strict=True)):
+        return None
+    if entry["fps"] != fps:
+        warnings.warn(
+            f"{what} cache: an array argument was mutated in place since the "
+            "cached run (same object identity, different contents) -- "
+            "tracing and capturing again. Pass a fresh array instead of "
+            "mutating, or this run pays the full trace and capture every time.",
+            stacklevel=3,
+        )
+        return None
+    cache.move_to_end(key)
+    return entry
+
+
+def keep(cache: OrderedDict, key, entry: dict, drop: Callable, size: int) -> dict:
+    """Store ``entry`` under ``key`` as the most recently used, calling
+    ``drop`` (which releases its graphs) on the entry it replaces and on
+    the least recently used past ``size``."""
+    old = cache.pop(key, None)
+    if old is not None:
+        drop(old)
+    cache[key] = entry
+    while len(cache) > size:
+        drop(cache.popitem(last=False)[1])
+    return entry
+
+
 def _tensors(tree) -> list:
     return [x for x in pytree.tree_leaves(tree) if isinstance(x, torch.Tensor)]
 
@@ -105,7 +167,9 @@ class GraphedStep:
     pytree ``state`` (SVI's parameters and optimizer state), replayed from
     one CUDA graph with the state in static buffers.
 
-    :meth:`start` copies the first state into the buffers. The first call
+    :meth:`start` copies the first state into the buffers (made at the first
+    start; a later start, of a step kept across runs, writes into the same
+    buffers, whose addresses the graph reads). The first call
     writes its draws (a list of tensors) into static draw buffers and, on a
     card, captures ``step`` followed by the copy of the new state into the
     state buffers; the warm-up before the capture calls ``step`` alone, so
@@ -121,16 +185,21 @@ class GraphedStep:
         self.step = step
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.constants: dict = {}
-        self.replays = 0
+        self.replays = self.captures = 0
         #: the device of the state, and the walls of the warm-up and capture
         self.device: Optional[torch.device] = None
         self.warmup_s = self.capture_s = None
         self.state = self.draws = self.static_loss = None
 
     def start(self, state) -> None:
-        """Copy ``state`` into the state buffers (:attr:`state`)."""
-        self.state = pytree.tree_map(lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x, state)
-        self.device = _tensors(self.state)[0].device
+        """Copy ``state`` into the state buffers (:attr:`state`), in place
+        when they exist."""
+        if self.state is None:
+            self.state = pytree.tree_map(lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x, state)
+            self.device = _tensors(self.state)[0].device
+            return
+        for buf, x in zip(_tensors(self.state), _tensors(state), strict=True):
+            buf.copy_(x)
 
     def _body(self):
         new, loss = self.step(self.state, self.draws)
@@ -146,6 +215,7 @@ class GraphedStep:
                     self.graph, _, self.static_loss, self.warmup_s, self.capture_s = capture(
                         self.device, self.constants, lambda: self.step(self.state, self.draws), self._body,
                         "the SVI step")
+                    self.captures += 1
                 except GraphCaptureError:
                     self.draws = None  # a later call captures again, and never steps eagerly
                     raise

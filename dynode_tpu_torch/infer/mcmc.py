@@ -10,27 +10,50 @@ here the chains are the leading axis of every tensor (:mod:`.hmc` is
 written for a bank) and a Python loop drives the transitions on the device
 of the model's tensors. One ``torch.Generator`` per run, on that device,
 feeds every draw (:class:`~.hmc.Draws`); JAX's split-key trees have no
-counterpart, so the draws differ from JAX's for the same seed.
+counterpart, so the draws differ from JAX's for the same seed. The model's
+trace and the example init that lays out the flat vector draw from a
+generator of their own, seeded by one draw of the run's (JAX's
+``key_struct``): a run served from the cache below skips them and takes
+that one draw all the same, so its inits and transitions draw what a run
+that traces draws. (A prior's gamma or Poisson draws go to the generator
+itself, and on the CPU their count depends on the values, so the setup's
+draws cannot be recorded and retaken one by one.)
 
 The potential and its gradient for the bank:
 
 - ``batched_potential_fn`` (``(C, D)`` -> ``(C,)``) is differentiated with
   one ``torch.autograd.grad`` of the sum (the chains are independent, so
   this is JAX's vjp with ones). On a CUDA bank it is captured once into a
-  ``torch.cuda.CUDAGraph`` (:class:`GraphedPotential`), cached across runs
-  like JAX's executables, and every later call replays it. A capture that
-  meets a host sync or a host copy raises :class:`GraphCaptureError`; the
-  runner never falls back to the eager call.
+  ``torch.cuda.CUDAGraph`` (:class:`GraphedPotential`) and every later call
+  replays it. A capture that meets a host sync or a host copy raises
+  :class:`GraphCaptureError`; the runner never falls back to the eager call.
 - Otherwise the flat potential of the model is mapped over the chains with
   ``torch.func.vmap(torch.func.grad_and_value(...))`` (JAX's
   ``jax.vmap(jax.value_and_grad(...))``). On a CUDA bank of a vectorized
   run that map is captured into a :class:`GraphedPotential` at its first
-  call, one graph per run, width and device (one per shard device of a
-  mesh), and replayed at every later call of the run, as JAX jits it. The
-  graph is released when the run ends: it closes over this run's
-  arguments, so no cache keeps it. A capture that fails raises
-  :class:`GraphCaptureError`, as for a batched potential. The sequential
-  method and CPU tensors run the map eagerly.
+  call, one graph per width and device (one per shard device of a mesh),
+  and replayed at every later call, as JAX jits it. A capture that fails
+  raises :class:`GraphCaptureError`, as for a batched potential. The
+  sequential method and CPU tensors run the map eagerly.
+
+Both are kept across runs in ``_EXEC_CACHE``, as JAX keeps its programs
+(its ``_exec_cache_entry``; here :func:`~.graphs.cached` and
+:func:`~.graphs.keep`): at most ``_EXEC_CACHE_SIZE`` (8) entries, the
+least recently used dropped first, and a dropped entry releases its graphs
+(:func:`clear_exec_cache` drops them all). A run's entry is keyed on JAX's
+key (the model's identity, the kernel's configuration, the run's shape, the
+mesh, the arguments' tree and the identity of every leaf) plus the default
+dtype and the bank's device, and holds the trace, the transforms, the
+centres, the unravel, the flat potential and the generic potential's graphs
+with the argument copies a shard makes for its card: a repeated run with
+the same model and argument objects traces and captures nothing. A tensor
+leaf is fingerprinted by its shape, dtype, device and version counter (a
+numpy leaf by JAX's strided probe), so an argument changed in place warns
+and misses. The graph of a ``batched_potential_fn`` reads no model
+argument: it is an entry of its own in the same cache, keyed on the
+function, the bank's shape, dtype and device and the mesh
+(:func:`graphed_potential`), so a run with another model or other
+arguments shares it.
 """
 
 import inspect
@@ -55,7 +78,7 @@ from ..parallel.mesh import (
 )
 from . import handlers
 from .chees import ChEES, make_chees_parts
-from .graphs import GraphCaptureError, capture
+from .graphs import GraphCaptureError, cached, capture, fingerprint, keep
 from .hmc import (
     Draws,
     build_warmup_schedule,
@@ -169,7 +192,7 @@ class GraphedPotential:
         self.pot_and_grad = pot_and_grad
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.constants: dict = {}
-        self.replays = 0
+        self.replays = self.captures = 0
         #: the device of the last capture, and the walls of its warm-up and capture
         self.device: Optional[torch.device] = None
         self.warmup_s = self.capture_s = None
@@ -189,6 +212,7 @@ class GraphedPotential:
 
         self.graph, warm, (self.static_pe, self.static_grad), self.warmup_s, self.capture_s = capture(
             self.device, self.constants, call, call, "the potential")
+        self.captures += 1
         return warm
 
     def __call__(self, zb: torch.Tensor):
@@ -201,7 +225,7 @@ class GraphedPotential:
 
     def release(self) -> None:
         """Free the graph, its static buffers and its kept constants (the
-        replay count stays); a later call captures anew."""
+        replay and capture counts stay); a later call captures anew."""
         self.graph = None
         self.static_z = self.static_pe = self.static_grad = None
         self.constants = {}
@@ -211,25 +235,56 @@ _EXEC_CACHE: "OrderedDict[tuple, dict]" = OrderedDict()
 _EXEC_CACHE_SIZE = 8
 
 
+def _release_entry(entry: dict) -> None:
+    """Release every graph an entry of ``_EXEC_CACHE`` holds."""
+    graphs = [entry["graph"]] if "graph" in entry else [inspect.unwrap(p) for p in entry["parts"].values()]
+    for graph in graphs:
+        if isinstance(graph, GraphedPotential):
+            graph.release()
+
+
+def clear_exec_cache() -> None:
+    """Drop every entry of ``_EXEC_CACHE``, releasing its graphs (JAX's
+    ``_EXEC_CACHE.clear()``). Their memory goes back to the caching
+    allocator, which ``torch.cuda.empty_cache()`` returns to the card."""
+    while _EXEC_CACHE:
+        _release_entry(_EXEC_CACHE.popitem()[1])
+
+
 def graphed_potential(batched_pot: Callable, num_chains: int, D: int, dtype, device, mesh=None) -> GraphedPotential:
     """The cached :class:`GraphedPotential` of ``batched_pot`` for a bank
-    of ``num_chains`` x ``D`` in ``dtype`` on ``device`` (at most
-    ``_EXEC_CACHE_SIZE`` graphs, least recently used dropped first). The
-    entry holds ``batched_pot`` to pin its identity.
+    of ``num_chains`` x ``D`` in ``dtype`` on ``device``: an entry of
+    ``_EXEC_CACHE`` that holds ``batched_pot`` to pin its identity.
 
     ``mesh``: the key of the mesh and axis a split bank runs on (None for
     a whole bank), part of the cache key as in JAX's exec cache: a shard's
     graph is captured once per device and shard width of that mesh, and
     the shards of one device share it (each call replays and clones)."""
-    key = (id(batched_pot), int(num_chains), int(D), dtype, str(device), mesh)
-    entry = _EXEC_CACHE.get(key)
-    if entry is None or entry["fn"] is not batched_pot:
-        entry = {"fn": batched_pot, "graph": GraphedPotential(batched_pot_and_grad(batched_pot))}
-        _EXEC_CACHE[key] = entry
-    _EXEC_CACHE.move_to_end(key)
-    while len(_EXEC_CACHE) > _EXEC_CACHE_SIZE:
-        _EXEC_CACHE.popitem(last=False)
+    key = ("batched", id(batched_pot), int(num_chains), int(D), dtype, str(device), mesh)
+    entry = cached(_EXEC_CACHE, key, [batched_pot], [], "graphed_potential")
+    if entry is None:
+        entry = keep(_EXEC_CACHE, key, {"objects": [batched_pot], "fps": [],
+                                        "graph": GraphedPotential(batched_pot_and_grad(batched_pot))},
+                     _release_entry, _EXEC_CACHE_SIZE)
     return entry["graph"]
+
+
+def _kernel_token(kern) -> tuple:
+    """Hashable fingerprint of everything a kernel bakes into its programs."""
+    common = (
+        type(kern).__name__,
+        kern.dense_mass,
+        kern.target_accept_prob,
+        id(kern.init_strategy),
+        kern.step_size,
+        kern.adapt_step_size,
+        kern.adapt_mass_matrix,
+        kern.center_potential,
+        id(kern.batched_potential_fn) if kern.batched_potential_fn is not None else None,
+    )
+    if isinstance(kern, ChEES):
+        return common + (kern.trajectory_length, kern.max_num_steps, kern.adapt_lr)
+    return common + (kern.max_tree_depth,)
 
 
 # ---------------------------------------------------------------------------
@@ -607,18 +662,56 @@ class MCMC:
         gen = rng_key if isinstance(rng_key, torch.Generator) else torch.Generator(device=device).manual_seed(int(rng_key))
         draws = Draws(gen)
 
-        # a warm-started run draws its trace and inits (shapes, transforms,
-        # centres) from a scratch generator: it takes nothing from ``gen``
-        # but its transitions, so it continues an earlier run's stream
-        setup_gen = gen if warm_start is None else torch.Generator(device=device).manual_seed(0)
-        tr = get_model_trace(model, setup_gen, *args, **kwargs)
-        if not latent_sites(tr):
-            raise ValueError("model has no latent sample sites to infer")
-        transforms = get_transforms(tr)
-        centers = observed_logprob_centers(tr) if self.kernel.center_potential else None
+        # cross-run cache (module docstring): the trace, transforms, centres,
+        # flat potential and graphs are reused whenever the kernel's
+        # configuration, the run's shape and the identity of the model and of
+        # every argument match. Centres are draw-derived constants: reusing an
+        # earlier run's shifts the potential by a constant per site, to which
+        # the chains and the diagnostics are invariant
+        leaves, treedef = pytree.tree_flatten((args, kwargs))
+        cache_key = (
+            id(model),
+            _kernel_token(self.kernel),
+            self.num_warmup,
+            self.num_samples,
+            self.num_chains,
+            self.steps_per_call,
+            self.chain_method,
+            None if self.mesh is None else self.mesh.key(),
+            self.chain_axis,
+            treedef,
+            tuple(id(x) for x in leaves),
+            torch.get_default_dtype(),
+            str(device),
+        )
+        # the entry holds the model, every leaf and the kernel's callables: their
+        # ids cannot be recycled while it lives, and a hit is confirmed with ``is``
+        objects = [model, *leaves, self.kernel.init_strategy, self.kernel.batched_potential_fn]
+        fps = [fingerprint(x) for x in leaves]
+        entry = cached(_EXEC_CACHE, cache_key, objects, fps, "MCMC executable")
+
+        # the setup's draws come from a generator seeded by one draw of ``gen``
+        # (JAX's key_struct), taken on a hit too; a warm-started run takes
+        # nothing from ``gen`` but its transitions, so it continues an earlier
+        # run's stream
+        setup_seed = 0 if warm_start is not None else int(torch.randint(2**62, (), generator=gen, device=gen.device))
+        if entry is None:
+            setup_gen = torch.Generator(device=device).manual_seed(setup_seed)
+            tr = get_model_trace(model, setup_gen, *args, **kwargs)
+            if not latent_sites(tr):
+                raise ValueError("model has no latent sample sites to infer")
+            transforms = get_transforms(tr)
+            centers = observed_logprob_centers(tr) if self.kernel.center_potential else None
+            u0 = unconstrain_sample(transforms, initialize_latents(tr, setup_gen, self.kernel.init_strategy))
+            flat_pot, _, unravel = flatten_potential(make_potential_fn(model, args, kwargs, transforms,
+                                                                       centers=centers), u0)
+            entry = keep(_EXEC_CACHE, cache_key, {"objects": objects, "fps": fps, "parts": {}, "tr": tr,
+                                                  "transforms": transforms, "centers": centers, "u0": u0,
+                                                  "unravel": unravel, "flat_pot": flat_pot},
+                         _release_entry, _EXEC_CACHE_SIZE)
+        tr, transforms, centers, u0 = entry["tr"], entry["transforms"], entry["centers"], entry["u0"]
+        flat_pot, unravel = entry["flat_pot"], entry["unravel"]
         init_strategy = self.kernel.init_strategy
-        u0 = unconstrain_sample(transforms, initialize_latents(tr, setup_gen, init_strategy))
-        flat_pot, _, unravel = flatten_potential(make_potential_fn(model, args, kwargs, transforms, centers=centers), u0)
         self._transforms = transforms
         self._unravel = unravel
 
@@ -639,17 +732,21 @@ class MCMC:
 
         def bank_part(width, dev):
             """The potential and gradient of ``width`` chains on ``dev``:
-            graph-captured on a card unless the chains run one by one."""
+            graph-captured on a card unless the chains run one by one; the
+            generic one kept in the run's cache entry."""
             graphed = dev.type == "cuda" and self.chain_method != "sequential"
             if batched is None:
-                pot = flat_pot
-                if dev != device:
-                    # the model's tensors go with the shard
-                    moved = pytree.tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x,
-                                            (args, kwargs, centers))
-                    pot = flatten_potential(make_potential_fn(model, moved[0], moved[1], transforms,
-                                                              centers=moved[2]), u0)[0]
-                part = generic_pot_and_grad(pot, dev if graphed else None)
+                part = entry["parts"].get((width, str(dev), graphed))
+                if part is None:
+                    pot = flat_pot
+                    if dev != device:
+                        # the model's tensors go with the shard
+                        moved = pytree.tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x,
+                                                (args, kwargs, centers))
+                        pot = flatten_potential(make_potential_fn(model, moved[0], moved[1], transforms,
+                                                                  centers=moved[2]), u0)[0]
+                    part = entry["parts"][(width, str(dev), graphed)] = generic_pot_and_grad(pot, dev if graphed
+                                                                                             else None)
                 graph = inspect.unwrap(part)
                 if isinstance(graph, GraphedPotential):
                     self.graphs.append(graph)
@@ -668,59 +765,53 @@ class MCMC:
             pot_and_grad = split_pot_and_grad(plan, parts)
         self.graph = self.graphs[0] if self.graphs else None
 
-        try:
-            if z0s is not None:
-                # reject non-finite starting points: redraw the bad chains up to
-                # 20 times (21 validations bracket 20 redraw rounds)
-                for attempt in range(21):
-                    pe0, g0 = pot_and_grad(z0s)
-                    ok = torch.isfinite(pe0) & torch.all(torch.isfinite(g0), dim=-1)
-                    if bool(ok.all()):
-                        break
-                    if attempt == 20:
-                        bad = torch.where(~ok)[0].tolist()
-                        raise RuntimeError(
-                            "could not find finite initial potentials/gradients "
-                            f"for all chains after 20 redraws (bad chains: {bad})"
-                        )
-                    z0s = torch.where(ok[:, None], z0s, flat_init_bank().to(device))
+        if z0s is not None:
+            # reject non-finite starting points: redraw the bad chains up to
+            # 20 times (21 validations bracket 20 redraw rounds)
+            for attempt in range(21):
+                pe0, g0 = pot_and_grad(z0s)
+                ok = torch.isfinite(pe0) & torch.all(torch.isfinite(g0), dim=-1)
+                if bool(ok.all()):
+                    break
+                if attempt == 20:
+                    bad = torch.where(~ok)[0].tolist()
+                    raise RuntimeError(
+                        "could not find finite initial potentials/gradients "
+                        f"for all chains after 20 redraws (bad chains: {bad})"
+                    )
+                z0s = torch.where(ok[:, None], z0s, flat_init_bank().to(device))
 
-            if self.progress_bar:
-                print(
-                    f"[dynode_tpu_torch.MCMC] running {self.num_chains} chain(s) x "
-                    f"({self.num_warmup} warmup + {self.num_samples} samples) on {device}..."
-                )
-            if isinstance(self.kernel, ChEES):
-                self.last_state, self._tuned, collected = self._run_chees(
-                    pot_and_grad, D, dtype, device, z0s, draws, warm_start=warm_start
-                )
-            elif warm_start is not None:
-                prev_state, (inv_mass, chol, eps) = warm_start
-                # re-anchor the saved states on this run's potential function
-                pe, grad = pot_and_grad(prev_state.z)
-                state = prev_state._replace(potential=pe, grad=grad)
-                _, _, sample_step = self._nuts_parts(pot_and_grad, D, dtype, device, draws)
-                state, collected = self._sample(state, sample_step, (inv_mass, chol, eps))
-                collected["step_size"] = eps
-                self.last_state, self._tuned = state, (inv_mass, chol, eps)
-            elif self.chain_method == "sequential":
-                # one chain at a time, each a bank of one, from the one generator
-                outs = [
-                    self._run_nuts(pot_and_grad, D, dtype, device, z0s[i : i + 1], draws, rescue=False)
-                    for i in range(self.num_chains)
-                ]
-                self.last_state = type(outs[0][0])(*(torch.cat(xs) for xs in zip(*(o[0] for o in outs))))
-                self._tuned = tuple(torch.cat(xs) for xs in zip(*(o[1] for o in outs)))
-                collected = {k: torch.cat([o[2][k] for o in outs]) for k in outs[0][2]}
-            else:
-                self.last_state, self._tuned, collected = self._run_nuts(
-                    pot_and_grad, D, dtype, device, z0s, draws, rescue=True
-                )
-        finally:
-            if batched is None:
-                # the generic graphs close over this run's arguments: none outlives it
-                for graph in self.graphs:
-                    graph.release()
+        if self.progress_bar:
+            print(
+                f"[dynode_tpu_torch.MCMC] running {self.num_chains} chain(s) x "
+                f"({self.num_warmup} warmup + {self.num_samples} samples) on {device}..."
+            )
+        if isinstance(self.kernel, ChEES):
+            self.last_state, self._tuned, collected = self._run_chees(
+                pot_and_grad, D, dtype, device, z0s, draws, warm_start=warm_start
+            )
+        elif warm_start is not None:
+            prev_state, (inv_mass, chol, eps) = warm_start
+            # re-anchor the saved states on this run's potential function
+            pe, grad = pot_and_grad(prev_state.z)
+            state = prev_state._replace(potential=pe, grad=grad)
+            _, _, sample_step = self._nuts_parts(pot_and_grad, D, dtype, device, draws)
+            state, collected = self._sample(state, sample_step, (inv_mass, chol, eps))
+            collected["step_size"] = eps
+            self.last_state, self._tuned = state, (inv_mass, chol, eps)
+        elif self.chain_method == "sequential":
+            # one chain at a time, each a bank of one, from the one generator
+            outs = [
+                self._run_nuts(pot_and_grad, D, dtype, device, z0s[i : i + 1], draws, rescue=False)
+                for i in range(self.num_chains)
+            ]
+            self.last_state = type(outs[0][0])(*(torch.cat(xs) for xs in zip(*(o[0] for o in outs))))
+            self._tuned = tuple(torch.cat(xs) for xs in zip(*(o[1] for o in outs)))
+            collected = {k: torch.cat([o[2][k] for o in outs]) for k in outs[0][2]}
+        else:
+            self.last_state, self._tuned, collected = self._run_nuts(
+                pot_and_grad, D, dtype, device, z0s, draws, rescue=True
+            )
         z = collected.pop("z")  # (chains, samples, D)
         self._collect(z, collected)
         if consensus_check:
@@ -852,4 +943,5 @@ class MCMC:
             print(name, row)
 
 
-__all__ = ["NUTS", "MCMC", "GraphCaptureError", "GraphedPotential", "graphed_potential", "split_pot_and_grad"]
+__all__ = ["NUTS", "MCMC", "GraphCaptureError", "GraphedPotential", "clear_exec_cache", "graphed_potential",
+           "split_pot_and_grad"]

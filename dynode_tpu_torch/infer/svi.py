@@ -15,26 +15,38 @@ then ``svi.run(key, num_steps, init_state)`` returning an ``SVIRunResult``.
   (:class:`~.hmc.Draws`, or a test's replay of recorded draws): every draw
   of a run comes from that one stream, in order, where JAX splits a key
   per step. So the draws differ from JAX's for a seed.
-- **A CUDA graph a run.** JAX jits ``SVI.run``'s loop as one
-  ``lax.scan`` and ``run_multistart``'s bank as one program. On a card
-  the port captures the step (one ``update``, or the bank's
-  ``torch.func.vmap`` of one start's step) into one CUDA graph at the
-  run's first step and replays it at every step
-  (:class:`~.graphs.GraphedStep`; one graph a shard on a mesh), then
-  releases it. Each step's draws are taken from the seam outside the
-  graph first, in the order of the guide's draws (its draw signature,
-  recorded by ``init``), and handed to the graph: so a run takes the
-  eager loop's draws and arithmetic, bit for bit. A capture that fails
-  raises :class:`~.graphs.GraphCaptureError` naming the user's line, and
-  no step runs eagerly in its place. CPU tensors run the steps eagerly
-  (a host loop; the losses stay on the device). The final ELBO of a
-  bank runs eagerly, once a run. JAX's identity-keyed cache of the
-  compiled bank is not kept: a graph closes over its run's arguments.
+- **CUDA graphs.** JAX jits ``SVI.run``'s loop as one ``lax.scan`` and
+  ``run_multistart``'s bank as one program. On a card the port captures
+  the step (one ``update``, or the bank's ``torch.func.vmap`` of one
+  start's step) into one CUDA graph at the run's first step and replays
+  it at every step (:class:`~.graphs.GraphedStep`; one graph a shard on a
+  mesh). Each step's draws are taken from the seam outside the graph
+  first, in the order of the guide's draws (its draw signature, recorded
+  by ``init``), and handed to the graph: so a run takes the eager loop's
+  draws and arithmetic, bit for bit. A capture that fails raises
+  :class:`~.graphs.GraphCaptureError` naming the user's line, and no step
+  runs eagerly in its place. CPU tensors run the steps eagerly (a host
+  loop; the losses stay on the device). The final ELBO of a bank runs
+  eagerly, once a run.
+- **Kept across runs.** ``SVI.run`` releases its graph at the end, as JAX
+  jits a fresh closure every run. ``run_multistart`` keeps its bank, as
+  JAX keeps its compiled bank (``_multistart_cache``): per instance, keyed
+  on JAX's key (the counts and the identity of every model argument) plus
+  the device, the parameters' dtype and the mesh, confirmed with ``is``
+  and the arguments' fingerprints (:func:`~.graphs.cached`; a changed
+  argument warns and misses). An entry holds the bank's functions and
+  their graphs with their state and draw buffers: a repeated fit copies
+  its start into those buffers and replays at once, and returns copies of
+  them. ``init_jitter`` and every draw stay outside the graph, so changing
+  them recaptures nothing. At most ``_EXEC_CACHE_SIZE`` (8) entries an
+  instance, the least recently used dropped first with its graphs
+  released (JAX's dict is unbounded; a graph pins its memory on the card).
 """
 
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -45,8 +57,9 @@ from ..dist import Delta, MultivariateNormal, Normal
 from ..dist.transforms import biject_to
 from ..parallel.mesh import gather_shards, run_shards, shard_plan, split
 from . import handlers
-from .graphs import GraphedStep
+from .graphs import GraphedStep, cached, fingerprint, keep
 from .hmc import Draws
+from .mcmc import _EXEC_CACHE_SIZE, _run_device
 from .util import (
     GivenDraws,
     RecordingDraws,
@@ -218,8 +231,6 @@ def _setup_device(args, kwargs) -> torch.device:
     """The device of the guide's set-up trace: the innermost seed handler's
     generator or seam, else that of the model's tensor arguments, else the
     card."""
-    from .mcmc import _run_device
-
     for h in reversed(handlers._STACK):
         if isinstance(h, handlers.seed) and h.generator is not None:
             return torch.device(h.generator.device)
@@ -356,14 +367,15 @@ class SVI:
         #: the guide's draws in one call (kind, shape, dtype), from ``init``
         self._signature = None
         #: the :class:`~.graphs.GraphedStep` of the last run on a card (one
-        #: a shard on a mesh), released when the run ended
+        #: a shard on a mesh): released when an ``SVI.run`` ended, kept in
+        #: ``_multistart_cache`` by ``run_multistart``
         self.graphs: list = []
+        #: kept multi-start banks, identity-keyed (:meth:`run_multistart`)
+        self._multistart_cache: "OrderedDict[tuple, dict]" = OrderedDict()
 
     def _seam(self, rng_key, args, kwargs):
         """The run's draw seam: an int seeds a generator on the device of
         the model's tensor arguments, else the card."""
-        from .mcmc import _run_device
-
         return draw_seam(rng_key, _run_device(rng_key, args, kwargs))
 
     def init(self, rng_key, **model_kwargs) -> SVIState:
@@ -444,8 +456,8 @@ class SVI:
             def step(carry, draws):
                 return self._step(*carry, GivenDraws(draws, device), args, model_kwargs)
 
-            carry, losses = self._replay({0: step}, None, (state.params, state.opt_state), state.rng_key, signature,
-                                         None, n_steps)
+            carry, losses = self._replay({0: GraphedStep(step)}, None, (state.params, state.opt_state), state.rng_key,
+                                         signature, None, n_steps, kept=False)
             state = SVIState(*carry, state.rng_key)
         else:
             losses = []
@@ -489,16 +501,19 @@ class SVI:
 
         return torch.func.vmap(one_step), torch.func.vmap(final_elbo)
 
-    def _replay(self, steps: dict, plan, state, seam, signature, n: Optional[int], n_steps: int):
+    def _replay(self, graphs: dict, plan, state, seam, signature, n: Optional[int], n_steps: int, kept: bool):
         """``n_steps`` steps replayed on the card: one :class:`~.graphs.GraphedStep`
-        of ``steps[s]`` a shard ``s`` of ``plan`` (``steps[0]`` without a
-        mesh), captured on the shard's card at the first step, replayed at
-        every step and released at the end. Each step's draws of
-        ``signature`` are made for the whole bank of ``n`` (one start: None)
-        on the seam's device and split to the shards outside the graphs;
-        each shard's state stays in its graph's buffers, and the shards'
-        states and losses are gathered once, at the end. Returns ``(state,
-        losses)`` on the seam's device, the steps on the losses' last axis."""
+        ``graphs[s]`` a shard ``s`` of ``plan`` (``graphs[0]`` without a
+        mesh), started from ``state`` in its buffers, captured on the
+        shard's card at its first step (unless kept from an earlier run)
+        and replayed at every step; released at the end unless ``kept``.
+        Each step's draws of ``signature`` are made for the whole bank of
+        ``n`` (one start: None) on the seam's device and split to the
+        shards outside the graphs; each shard's state stays in its graph's
+        buffers, and the shards' states and losses are gathered once, at
+        the end. Returns ``(state, losses)`` on the seam's device, the
+        steps on the losses' last axis; a kept graph's state as a copy,
+        which its next run does not overwrite."""
         def cut(tree, s):
             if plan is None:
                 return tree
@@ -507,7 +522,6 @@ class SVI:
         def each(fn):
             return {0: fn(0)} if plan is None else run_shards(plan, fn)
 
-        graphs = {s: GraphedStep(step) for s, step in steps.items()}
         self.graphs = list(graphs.values())
         per_step = getattr(self.loss, "num_particles", 1)
         losses = {}
@@ -520,11 +534,15 @@ class SVI:
                         losses[s] = loss_val.new_empty(tuple(loss_val.shape) + (n_steps,))
                     losses[s][..., i].copy_(loss_val)
         finally:
-            for graph in graphs.values():
-                graph.release()
+            if not kept:
+                for graph in graphs.values():
+                    graph.release()
         if plan is None:
-            return graphs[0].state, losses[0]
-        whole = gather_shards(plan, {s: (graphs[s].state, losses[s]) for s in steps}, dim=0)
+            state = graphs[0].state
+            if kept:
+                state = pytree.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, state)
+            return state, losses[0]
+        whole = gather_shards(plan, {s: (graphs[s].state, losses[s]) for s in graphs}, dim=0)
         return pytree.tree_map(lambda x: x.to(seam.device), whole)
 
     def run_multistart(
@@ -572,6 +590,11 @@ class SVI:
         replayed at every step; the draws, the split and the gather stay
         outside the graphs (:meth:`_replay`). The final ELBO runs eagerly,
         once a run.
+
+        Repeat calls with the same counts and the same model argument
+        OBJECTS reuse the kept bank, its graphs included (the module
+        docstring): fresh seeds, re-inits and another ``init_jitter``
+        capture nothing. A different obs object is a deliberate miss.
         """
         args = model_kwargs.pop("_args", ())
         n = int(num_starts)
@@ -590,7 +613,25 @@ class SVI:
                 params0[name] = v.expand((n,) + tuple(v.shape)).clone()
 
         places = {0: seam.device} if plan is None else {s: plan.place(s) for s in plan.local}
-        fns = {s: self._bank_fns(dev, seam.device, args, model_kwargs, final_particles) for s, dev in places.items()}
+
+        leaves, treedef = pytree.tree_flatten((args, dict(sorted(model_kwargs.items()))))
+        cache_key = (
+            int(num_steps),
+            n,
+            int(final_particles),
+            treedef,
+            tuple(id(x) for x in leaves),
+            str(seam.device),
+            next(iter(base.params.values())).dtype,
+            None if mesh is None else (mesh.key(), batch_axis),
+        )
+        fps = [fingerprint(x) for x in leaves]
+        entry = cached(self._multistart_cache, cache_key, leaves, fps, "run_multistart")
+        if entry is None:
+            fns = {s: self._bank_fns(dev, seam.device, args, model_kwargs, final_particles) for s, dev in places.items()}
+            entry = keep(self._multistart_cache, cache_key, {"objects": leaves, "fps": fps, "fns": fns}, _release_bank,
+                         _EXEC_CACHE_SIZE)
+        fns = entry["fns"]
         if plan is None:
             bank_step, bank_elbo = fns[0]
         else:
@@ -614,8 +655,10 @@ class SVI:
         per_step = getattr(self.loss, "num_particles", 1)
         self.graphs = []
         if n_steps and all(self._graphed(dev) for dev in places.values()):
-            state, losses_all = self._replay({s: f[0] for s, f in fns.items()}, plan, state, seam, self._signature, n,
-                                             n_steps)
+            if "graphs" not in entry:
+                entry["graphs"] = {s: GraphedStep(f[0]) for s, f in fns.items()}
+            state, losses_all = self._replay(entry["graphs"], plan, state, seam, self._signature, n, n_steps,
+                                             kept=True)
         else:
             losses = []
             for _ in range(n_steps):
@@ -640,6 +683,14 @@ class SVI:
             all_params=params,
             all_losses=losses_all,
         )
+
+
+def _release_bank(entry: dict) -> None:
+    """Release the graphs of a dropped ``_multistart_cache`` entry and
+    their state buffers."""
+    for graph in entry.get("graphs", {}).values():
+        graph.release()
+        graph.state = None
 
 
 # ---------------------------------------------------------------------------

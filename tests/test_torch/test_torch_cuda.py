@@ -626,9 +626,10 @@ def test_generic_potential_graph_replays_the_eager_call_bit_for_bit(cuda, label,
 @pytest.mark.cuda
 def test_mcmc_graphs_the_generic_potential_and_never_runs_a_failed_capture_eagerly(cuda):
     """``MCMC`` with no batched potential: vectorized NUTS and ChEES keep one
-    released graph that replayed every evaluation, the sequential method
-    none; a model that reads a card tensor on the host raises
-    ``GraphCaptureError`` naming its line, and samples nothing."""
+    graph that replayed every evaluation (kept in the cross-run cache),
+    the sequential method none; a model that reads a card tensor on the
+    host raises ``GraphCaptureError`` naming its line, and samples
+    nothing."""
     from dynode_tpu_torch import dist
     from dynode_tpu_torch.infer import MCMC, NUTS, ChEES, handlers
     from dynode_tpu_torch.infer.mcmc import GraphCaptureError
@@ -652,7 +653,7 @@ def test_mcmc_graphs_the_generic_potential_and_never_runs_a_failed_capture_eager
         if method == "sequential":
             assert mc.graphs == [] and mc.graph is None
         else:
-            assert mc.graphs == [mc.graph] and mc.graph.replays > 10 and mc.graph.graph is None
+            assert mc.graphs == [mc.graph] and mc.graph.replays > 10 and mc.graph.graph is not None
     mc = MCMC(NUTS(reads_the_host, max_tree_depth=3), num_warmup=10, num_samples=10, num_chains=8)
     with pytest.raises(GraphCaptureError, match=r"test_torch_cuda\.py:\d+ \(scale = 2\.0 if float\(obs"):
         mc.run(torch.Generator(device=cuda).manual_seed(1), obs=obs)
@@ -767,8 +768,9 @@ def test_replayed_svi_runs_equal_the_eager_loop_bit_for_bit(cuda):
     """``SVI.run`` and ``SVI.run_multistart`` of the fit (4 days, float32)
     replay one CUDA graph a run, captured at the first step, and equal the
     eager loop on the card bit for bit over 3 steps: losses, parameters,
-    Adam state and final ELBOs; each graph replayed every step and was
-    released when its run ended."""
+    Adam state and final ELBOs; each graph replayed every step. ``SVI.run``
+    released its graph when the run ended, ``run_multistart`` kept its
+    bank's."""
     one_e, graphs_e, bank_e, opt_e, bank_graphs_e = _svi_runs(cuda, False)
     one_g, graphs_g, bank_g, opt_g, bank_graphs_g = _svi_runs(cuda, True)
     assert graphs_e == [] and bank_graphs_e == []
@@ -780,7 +782,10 @@ def test_replayed_svi_runs_equal_the_eager_loop_bit_for_bit(cuda):
     assert torch.equal(bank_g.final_elbos, bank_e.final_elbos) and bool(torch.isfinite(bank_g.final_elbos).all())
     for graph in graphs_g + bank_graphs_g:
         assert graph.replays == 3 and graph.device.type == "cuda" and graph.capture_s is not None
+    for graph in graphs_g:
         assert graph.graph is None and graph.draws is None and graph.constants == {}  # released
+    for graph in bank_graphs_g:
+        assert graph.graph is not None and graph.captures == 1  # kept
 
 
 @pytest.mark.cuda
@@ -796,6 +801,125 @@ def test_svi_bank_split_over_one_card_twice_graphs_each_shard(cuda):
     for ref, ref_opt in ((eager, eager_opt), (whole, whole_opt)):
         assert torch.equal(split.all_losses, ref.all_losses) and _same(split.all_params, ref.all_params)
         assert torch.equal(split.final_elbos, ref.final_elbos) and _same(split_opt, ref_opt)
+
+
+def _mean_model(obs):
+    from dynode_tpu_torch import dist
+    from dynode_tpu_torch.infer import handlers
+
+    mu = handlers.sample("mu", dist.Normal(torch.zeros((), dtype=obs.dtype, device=obs.device), 10.0))
+    handlers.sample("obs", dist.Normal(mu, 1.0), obs=obs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("center", [False, True])
+@pytest.mark.parametrize("kernel", ["nuts", "chees"])
+def test_a_repeated_mcmc_run_captures_nothing_and_draws_as_a_fresh_cache_run(cuda, kernel, center):
+    """A second ``MCMC.run`` with the same model and argument objects is
+    served the first run's graph: the same ``GraphedPotential``, no new
+    capture (``captures`` and ``capture_s`` unchanged), its replays going
+    on. Its draws (float64) equal a run at the same seed after the cache
+    was cleared: bit for bit uncentred; centred within 1e-5, since the
+    kept centres come from the first run's trace and shift the potential
+    by a constant whose rounding the warmup's adaptation carries."""
+    from dynode_tpu_torch.infer import MCMC, NUTS, ChEES
+    from dynode_tpu_torch.infer.mcmc import clear_exec_cache
+
+    obs = torch.as_tensor(np.random.default_rng(2).normal(3.0, 1.0, 32), dtype=torch.float64, device=cuda)
+
+    def make():
+        kern = (NUTS(_mean_model, max_tree_depth=5, center_potential=center) if kernel == "nuts"
+                else ChEES(_mean_model, max_num_steps=32, center_potential=center))
+        return MCMC(kern, num_warmup=30, num_samples=30, num_chains=64)
+
+    clear_exec_cache()
+    first = make()
+    first.run(torch.Generator(device=cuda).manual_seed(1), obs=obs)
+    graph = first.graph
+    assert graph.captures == 1 and graph.graph is not None
+    capture_s, replays = graph.capture_s, graph.replays
+    hit = make()
+    hit.run(torch.Generator(device=cuda).manual_seed(2), obs=obs)
+    assert hit.graph is graph and graph.captures == 1 and graph.capture_s == capture_s and graph.replays > replays
+    clear_exec_cache()
+    assert graph.graph is None  # released with its entry
+    miss = make()
+    miss.run(torch.Generator(device=cuda).manual_seed(2), obs=obs)
+    assert miss.graph is not graph and miss.graph.captures == 1
+    a, b = hit.get_samples(group_by_chain=True)["mu"], miss.get_samples(group_by_chain=True)["mu"]
+    assert a.shape == (64, 30) and bool(torch.isfinite(a).all())
+    if center:
+        assert float((a - b).abs().max()) <= 1e-5
+    else:
+        assert torch.equal(a, b)
+    clear_exec_cache()
+
+
+@pytest.mark.cuda
+def test_a_repeated_run_multistart_captures_nothing_and_equals_a_fresh_instance(cuda):
+    """A second ``run_multistart`` on one ``SVI`` with the same ``obs``
+    replays the kept bank's graph (the same ``GraphedStep``, one capture),
+    equals a fresh instance's run at its seed bit for bit (losses,
+    parameters, final ELBOs), and leaves the first result's parameters as
+    they were."""
+    import chip_smoke
+    from dynode_tpu_torch.infer import SVI, Adam, AutoMultivariateNormal, Trace_ELBO
+
+    obs = torch.as_tensor(chip_smoke.bench_nuts_obs()[:4], device=cuda)
+    model_ = chip_smoke.fit_model(days=4, device=cuda)
+
+    def svi():
+        return SVI(model_, AutoMultivariateNormal(model_), Adam(0.1), Trace_ELBO())
+
+    def fit(inst, seed):
+        return inst.run_multistart(torch.Generator(device=cuda).manual_seed(seed), num_steps=5, num_starts=64,
+                                   final_particles=2, obs=obs)
+
+    kept = svi()
+    r1 = fit(kept, 1)
+    (graph,) = kept.graphs
+    params1 = {k: v.clone() for k, v in r1.all_params.items()}
+    assert graph.captures == 1 and graph.replays == 5
+    r2 = fit(kept, 2)
+    assert kept.graphs == [graph] and graph.captures == 1 and graph.replays == 10
+    assert _same(r1.all_params, params1)  # not overwritten by the second run
+    fresh = fit(svi(), 2)
+    assert torch.equal(r2.all_losses, fresh.all_losses) and torch.equal(r2.final_elbos, fresh.final_elbos)
+    assert _same(r2.all_params, fresh.all_params) and bool(torch.isfinite(r2.all_losses).all())
+
+
+@pytest.mark.cuda
+def test_clearing_the_cache_frees_the_graphs_memory(cuda):
+    """The kept entries of generic-potential runs hold their graphs' memory
+    on the card; ``clear_exec_cache`` releases them, and the reserved
+    memory falls once the allocator's free blocks go back to the card."""
+    import gc
+
+    from dynode_tpu_torch.infer import MCMC, NUTS
+    from dynode_tpu_torch.infer.mcmc import _EXEC_CACHE, clear_exec_cache
+
+    clear_exec_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(cuda)
+    runs = []
+    for value in (3.0, -4.0):
+        obs = torch.full((4096,), value, dtype=torch.float32, device=cuda)
+        mc = MCMC(NUTS(_mean_model, max_tree_depth=3), num_warmup=2, num_samples=2, num_chains=4096)
+        mc.run(torch.Generator(device=cuda).manual_seed(0), obs=obs)
+        runs.append(mc.graph)
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_reserved(cuda)
+    assert len(_EXEC_CACHE) == 2 and all(g.graph is not None for g in runs)
+    clear_exec_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved(cuda)
+    print(f"reserved: {before} before, {kept} with 2 kept entries, {after} after clear_exec_cache")
+    assert all(g.graph is None and g.static_z is None for g in runs)
+    assert after < kept
 
 
 @pytest.mark.cuda

@@ -220,6 +220,7 @@ def test_cpu_and_sequential_runs_are_eager_and_every_call_is_seen(monkeypatch, k
         return mc.run(torch.Generator().manual_seed(2), obs=obs)
 
     want = run().get_samples()["mu"]
+    mcmc.clear_exec_cache()  # the wrapped run builds its potential anew, not from the first run's entry
     monkeypatch.setattr(mcmc, "generic_pot_and_grad", recording)
     with chip_smoke.counting_gradients() as seen:
         mc = run()
