@@ -65,22 +65,29 @@ builds; Triton's JIT), then:
     (and, for the adaptive kernels, their statistics), and its bound on the
     card, and the RK4 kernel with all four compartments saved in bf16 beside
     its own bound;
-13. drives the ODE engine and ``simulate`` (eager PyTorch on the card, no
-    kernel of its own): (a) an adaptive float64 ``simulate`` of 300 days
+13. drives the ODE engine and ``simulate`` (PyTorch on the card, no
+    kernel of its own; a key's first call eager, its second captured into
+    a CUDA graph, later ones replayed: the kept solves, each call's route
+    printed): (a) an adaptive float64 ``simulate`` of 300 days
     against ``tests/golden/trajectories.npz`` (``test_golden.py``'s bound),
-    with the accepted and rejected steps of the same call on CPU tensors;
+    with the accepted and rejected steps of the same call on CPU tensors,
+    then twice more on the card, captured and replayed, both bit for bit
+    with the eager call, with the three walls and the replay's device idle
+    share (``torch.profiler``);
     (b) ``simulate_ensemble`` lane-major at B = 9,984, Tsit5 at dt = 0.5,
-    against kernel #2 on the same inputs, and batch-leading against
-    lane-major on 1,024 members; (c) ``bench_nuts.py``'s lane-major fit
+    against kernel #2 on the same inputs, then captured (bit for bit) and
+    replayed with new scales (bit for bit with their eager solve), and
+    batch-leading against lane-major on 1,024 members; (c) ``bench_nuts.py``'s lane-major fit
     potential at its 4,096 chains (100 days), built as the bench builds it
     from the port's config and ``dist``: ``multistrain_config`` ->
     ``multistrain_odeparams``, a ``TruncatedNormal`` prior moved to
     unconstrained space by ``biject_to`` and its Jacobian, a centred
     ``Poisson`` likelihood, the chains drawn from the prior with a CUDA
     generator; finite, a float64 gradient on 4 chains against central
-    differences, the forward and forward + backward times, the prior and
-    Jacobian's share of them, peak memory, and, from ``torch.profiler``, the
-    device's idle share of one forward and its kernel launches per step;
+    differences, the forward's eager, capture and replay times (bit for
+    bit) and forward + backward's, the prior and Jacobian's share of them,
+    peak memory, and, from ``torch.profiler``, the device's idle share of
+    one replayed forward and its kernel launches per step;
     (d) an exhausted step budget (result 1, NaN tail);
 14. drives the configs to the kernels and ``dist`` on the card: (a)
     ``multistrain_odeparams(multistrain_config())`` equals
@@ -161,10 +168,12 @@ builds; Triton's JIT), then:
     1e-9); the multi-strain model at its published widths through
     ``simulate_ensemble`` of one member against Tsit5 (2e-5); a gradient
     through TRBDF2 against central differences; (b) 4,096 members of the
-    stiff SEIRS in float32 over ``STIFF_ENSEMBLE_DAYS``, batch-leading:
-    every result 0, ``STIFF_PICK`` (4) members held
-    to single-member solves (1e-5, equal steps), wall, steps and the
-    device's idle share; (c) the four split kernel entries (#1, #3, #4,
+    stiff SEIRS in float32 over ``STIFF_ENSEMBLE_DAYS``, batch-leading, one
+    key three times (eager, capture, replay, each wall apart, both kept
+    calls bit for bit with the eager one): every result 0, ``STIFF_PICK``
+    (4) members held to single-member solves (1e-5, equal steps; one key:
+    eager, capture, replays) and steps;
+    (c) the four split kernel entries (#1, #3, #4,
     #5) at ``obs_max``, ``adaptive_obs``, ``seip_c`` and
     ``seip_adaptive``'s widths, each bit for bit with the unsplit entry
     (the adaptive ones with equal statistics), a ragged adaptive split
@@ -204,7 +213,9 @@ builds; Triton's JIT), then:
 19. runs every example of ``examples_torch/`` on the card through its
     ``run`` functions at the example's widths (``examples_phase``'s
     docstring has each check and cut): (a) the eight simulation examples
-    at their own settings, each against the same call on CPU tensors; (b)
+    at their own settings (``EXAMPLE_SIM_CUTS``: ``seip`` over 120 days,
+    ``seirs_stiff_waning`` at its fast 40), each against the same call on
+    CPU tensors; (b)
     ``ensemble_scenarios``' 4,096 members through kernel #2, held against
     its plain version on 1,024; (c) ``seip_forecast``'s 32,768 members
     through kernel #5 (bf16, packed), held against its plain version, its
@@ -332,7 +343,8 @@ GRAD_DAYS = 30  # the gradient's horizon through TRBDF2, at a constant dt = DT (
 # bench_nuts.py's chain width; members held to single-member solves (1.4 s each, host-bound: the script's time)
 STIFF_ENSEMBLE, STIFF_PICK = 4096, 4  # 4 picks, not 8, pay for the repeated runs of the kept caches
 STIFF_ENSEMBLE_DAYS = 30  # (b) and its split in (d): cut from STIFF_DAYS to hold phase 17's budget on slower hosts
-MS_STIFF_DAYS = 30  # (a)'s multi-strain TRBDF2 solve: cut from DAYS for the same reason, and to pay for phase 19
+MS_STIFF_DAYS = 20  # (a)'s multi-strain TRBDF2 solve: cut from DAYS for the same reason, to pay for phase 19 (30)
+# and for the kept solves' checks (20)
 # and the repeated runs of the kept caches
 TOL_STIFF_MEMBER = 1e-5
 RAGGED_ADAPTIVE = 2 * 32800  # 32,800 members a shard: not a multiple of block_b 64
@@ -348,7 +360,8 @@ MESH_BUDGET_S = 180.0  # phase 17's time on the card
 MS_AGES = ("age_0_17", "age_18_49", "age_50_64", "age_65_plus")  # multistrain_config: ages 0-17, 18-49, 50-64, 65+
 MS_DEMOGRAPHICS = (0.25, 0.35, 0.25, 0.15)  # the SEIP model's AGE_DEMOGRAPHICS; contact: the config's default
 SHAPE_CHECK = 1024  # members held against the plain versions (the first 1,024: 256 BS3 blocks of 4)
-SHAPE_CHECK_DAYS = 50  # over the first 50 days of the main path's saves (the plain versions are host-bound)
+SHAPE_CHECK_DAYS = 25  # over the first 25 days of the main path's saves (the plain versions are host-bound; 50
+# until the kept solves' checks needed the time)
 SHAPES_BUDGET_S = 180.0  # phase 18's time on the card, its nvcc round apart
 SEIP_SHAPES = {"default": (4, 4, 3, 4, 2, 0), "second": (2, 2, 3, 3, 1, 1)}  # (A, J, K, M, L, seasonal) of (a)
 MS_SHAPE = (4, 3)  # (b)
@@ -357,6 +370,10 @@ LANE_ADAPTIVE = dict(steps_per_save=3)  # (c): Tsit5 at the default rtol 1e-5, a
 EXAMPLES_BUDGET_S = 240.0  # phase 19's time on the card
 EXAMPLE_SIMULATIONS = ("sir", "sir_age_stratified", "sir_age_risk_stratified", "seirs", "seirs_seasonal_forcing",
                        "seirs_multi_strain_age_stratified", "seip", "seirs_stiff_waning")
+# (a)'s depth, cut where a simulation is long on the card (host-bound: the
+# eager engine): seip 365 -> 120 days (26.6 s on the card), seirs_stiff_waning
+# its own fast 40 days, not 100 (15.9 s); they pay for the kept solves' checks
+EXAMPLE_SIM_CUTS = {"seip": ({"DAYS": 120}, {}), "seirs_stiff_waning": ({}, {"fast": True})}
 EXAMPLE_CHECK = 1024  # (b): the ensemble's first members held against kernel #2's plain version
 #: (d): each fit's sampling call at the example's widths, its counts cut to
 #: hold the gate, then its tree depth (the example's own in the docstring),
@@ -743,27 +760,48 @@ def engine_phase(dev, smi: str, gen):
     from dynode_tpu_torch.ops import multistrain as ms
 
     t_phase = time.perf_counter()
-    print(f"phase 13: the ODE engine and simulate, eager PyTorch on the card [{smi}]")
+    print(f"phase 13: the ODE engine and simulate, PyTorch on the card, kept solves [{smi}]")
 
-    # (a) adaptive anchor, float64, and the same call on CPU tensors
+    # (a) adaptive anchor, float64: three calls on the card, one key (eager,
+    # capture, replay of the kept solve), and the same call on CPU tensors
     golden = np.load(REPO / "tests" / "golden" / "trajectories.npz")["multistrain_c"]
-    anchor = {}
-    for where in (dev, torch.device("cpu")):
+    def anchor_call(where):
         p = model.multistrain_default_params(dtype=torch.float64, device=where)
         y = model.multistrain_initial_state(dtype=torch.float64, device=where)
-        t = time.perf_counter()
-        sol = simulate(model.multistrain_ode, 300, y, p, SolverParams(step_budget=512))
-        c = sol.ys[4].cpu().numpy()
-        anchor[where.type] = (sol, c, time.perf_counter() - t)
-    sol, c, wall = anchor[dev.type]
+        return lambda: simulate(model.multistrain_ode, 300, y, p, SolverParams(step_budget=512))
+
+    on_card = anchor_call(dev)
+    anchor = {"card": [routed(on_card) for _ in range(3)], "cpu": [routed(anchor_call(torch.device("cpu")))]}
+    (wall, sol, route), (cap_s, cap, cap_route), (rep_s, rep, rep_route) = anchor["card"]
+    capture_s = last_capture()
+    c = sol.ys[4].cpu().numpy()
     excess = float(np.max(np.abs(c - golden) - (GOLDEN_ATOL + GOLDEN_RTOL * np.abs(golden))))
-    steps = {k: (int(v[0].stats["num_accepted"]), int(v[0].stats["num_rejected"])) for k, v in anchor.items()}
+    steps = {k: (int(v[0][1].stats["num_accepted"]), int(v[0][1].stats["num_rejected"])) for k, v in anchor.items()}
     print(f"  (a) simulate 300 days, float64, adaptive (grid engine, step_budget 512): result {int(sol.result)}, "
-          f"accepted / rejected on the card {steps[dev.type]}, on the CPU {steps['cpu']}; c vs golden: max "
+          f"accepted / rejected on the card {steps['card']}, on the CPU {steps['cpu']}; c vs golden: max "
           f"|d| - (atol {GOLDEN_ATOL:g} + rtol {GOLDEN_RTOL:g} |ref|) = {excess:.3e} (<= 0); wall {wall:.2f} s "
-          f"on the card, {anchor['cpu'][2]:.2f} s on the CPU")
+          f"on the card ({route}), {anchor['cpu'][0][0]:.2f} s on the CPU")
     check(int(sol.result) == 0 and excess <= 0.0, f"simulate vs golden: excess {excess:.3e}")
-    check(steps[dev.type] == steps["cpu"], f"card and CPU took other steps: {steps}")
+    check(steps["card"] == steps["cpu"], f"card and CPU took other steps: {steps}")
+    check((route, cap_route, rep_route) == ("eager", "capture", "replay"),
+          f"the anchor's three calls took {route}, {cap_route}, {rep_route}")
+    check(same_solution(cap, sol) and same_solution(rep, sol), "the anchor's captured or replayed call differs "
+                                                             "from the eager call")
+    # the share is of the untraced replay's wall, as (c)'s: the traced
+    # call's own wall holds the tracer's cost
+    busy = device_busy(on_card)
+    if not busy:
+        idle = "not measured (no device time traced)"
+    elif busy[0] > rep_s:
+        idle = (f"none seen (a traced replay: {busy[1]} device operations, busy {busy[0]:.3f} s, more than the "
+                f"untraced replay's wall {rep_s:.3f} s: device-bound)")
+    else:
+        idle = (f"{1.0 - busy[0] / rep_s:.1%} (a traced replay: {busy[1]} device operations, busy {busy[0]:.3f} s "
+                f"of the untraced replay's {rep_s:.3f} s)")
+    print(f"      the same key again (engine_anchor kept): capture {cap_s:.2f} s ({cap_route}: the capture "
+          f"{capture_s:.2f} s, then a replay), replay {rep_s:.3f} s ({rep_route}); "
+          f"eager / replay {wall / rep_s:.1f}x, capture call / eager {cap_s / wall:.2f}; both bit for bit with the "
+          f"eager call (saves, statistics, result); the replay's device idle share {idle} [{smi}]")
     print(f"      (a) took {time.perf_counter() - t_phase:.1f} s")
 
     # (b) constant step at B = 9,984 against kernel #2, and the two layouts
@@ -777,21 +815,38 @@ def engine_phase(dev, smi: str, gen):
 
     sp_c = SolverParams(constant_step_size=DT)
     scales = scenario_scales(gen, ENSEMBLE)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    lane = simulate_ensemble(model.multistrain_ode, int(DAYS), y0, batch_params(base, scales), sp_c,
-                             layout="lane_major")
-    torch.cuda.synchronize()
-    lane_s = time.perf_counter() - t
+
+    def lane_call(s):
+        return lambda: simulate_ensemble(model.multistrain_ode, int(DAYS), y0, batch_params(base, s), sp_c,
+                                         layout="lane_major")
+
+    lane_s, lane, route = routed(lane_call(scales))
     kern = ms.unpack_saves(ms.ensemble_solve_tsit5(
         y0, base.beta[None, :] * scales[:, None], base.sigma, base.gamma, base.omega, base.contact_matrix,
         batch=ENSEMBLE, duration=DAYS, dt=DT))
     rel = max(rel_err(g.movedim(-1, 1), w)[1] for g, w in zip(lane.ys, kern))
-    print(f"  (b) simulate_ensemble lane_major B={ENSEMBLE}, {DAYS:.0f} days, Tsit5 dt={DT}: {lane_s:.2f} s; vs "
-          f"kernel #2 (multistrain_tsit5): max rel err {rel:.3e} (tol {TOL_ENGINE:.0e})")
+    print(f"  (b) simulate_ensemble lane_major B={ENSEMBLE}, {DAYS:.0f} days, Tsit5 dt={DT}: {lane_s:.2f} s "
+          f"({route}); vs kernel #2 (multistrain_tsit5): max rel err {rel:.3e} (tol {TOL_ENGINE:.0e})")
     check(all(bool(torch.isfinite(x).all()) for x in lane.ys), "non-finite lane-major saves")
     check(rel <= TOL_ENGINE, f"simulate_ensemble vs kernel #2: rel err {rel:.3e}")
     del kern
+    # the same key twice more (engine_lane_10k kept): the second call
+    # captures, the third replays new scales, which must give their eager solve
+    new_scales = scenario_scales(torch.Generator(device=dev).manual_seed(SEED + 13), ENSEMBLE)
+    cap_s, cap, cap_route = routed(lane_call(scales))
+    capture_s = last_capture()
+    rep_s, rep, rep_route = routed(lane_call(new_scales))
+    with eager_route():
+        eager_new = lane_call(new_scales)()
+    check((route, cap_route, rep_route) == ("eager", "capture", "replay"),
+          f"the lane-major calls took {route}, {cap_route}, {rep_route}")
+    check(same_solution(cap, lane), "the captured lane-major call differs from the eager one")
+    check(same_solution(rep, eager_new) and not same_solution(rep, lane),
+          "the replay of new scales differs from their eager solve")
+    print(f"      the same key again: capture {cap_s:.2f} s ({cap_route}: the capture {capture_s:.2f} s, then a "
+          f"replay), bit for bit with the eager call; replay of new scales {rep_s:.3f} s "
+          f"({rep_route}), bit for bit with their eager solve; eager / replay {lane_s / rep_s:.1f}x [{smi}]")
+    del cap, rep, eager_new
     # the first LAYOUT_B members again, batch-leading: lane-major members
     # share dt and nothing else, so the wide run holds their solves
     t = time.perf_counter()
@@ -833,18 +888,25 @@ def engine_phase(dev, smi: str, gen):
         fit.prior_term(z)[1].sum().backward()
         return z.grad
 
-    fwd_ms, pot = median_ms(forward)
+    # one key four times: eager, capture, then two replays (the kept solve)
+    fwd = [routed(forward) for _ in range(4)]
+    check([r for _, _, r in fwd] == ["eager", "capture", "replay", "replay"],
+          f"the forward's calls took {[r for _, _, r in fwd]}")
+    check(all(torch.equal(out, fwd[0][1]) for _, out, _ in fwd), "a kept forward differs from the eager one")
+    fwd_ms, pot = statistics.median([fwd[2][0], fwd[3][0]]) * 1e3, fwd[3][1]
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)  # what the earlier phases still hold
-    fb_ms, grad = median_ms(forward_backward)  # each call frees what the one before held
+    fb_ms, grad = wall_ms(forward_backward)  # one call (was median of 3 after a warm-up): host-bound, 2.8-5.1 s
     peak = torch.cuda.max_memory_allocated(dev) - held
     prior_ms, _ = median_ms(prior_forward)
     prior_fb_ms, _ = median_ms(prior_forward_backward)
     check(bool(torch.isfinite(pot)) and bool(torch.isfinite(grad).all()), "non-finite fit value or gradient")
     print(f"  (c) bench_nuts.py's lane-major potential from multistrain_config, TruncatedNormal prior through "
           f"biject_to and the centred Poisson likelihood: {FIT_CHAINS} chains, {FIT_DAYS} days, dt={DT}: "
-          f"potential sum {float(pot):.6e}, gradient {tuple(grad.shape)} finite; forward {fwd_ms:.1f} ms, "
-          f"forward + backward {fb_ms:.1f} ms (host clock, median of 3 after a warm-up); of which the prior "
+          f"potential sum {float(pot):.6e}, gradient {tuple(grad.shape)} finite; forward {fwd[0][0] * 1e3:.1f} ms "
+          f"eager, {fwd[1][0] * 1e3:.1f} ms capture, {fwd_ms:.1f} ms replay (median of 2; bit for bit), "
+          f"forward + backward {fb_ms:.1f} ms (not kept: a gradient; host clock, one call); "
+          f"of which the prior "
           f"and Jacobian alone: forward {prior_ms:.3f} ms, forward + backward {prior_fb_ms:.3f} ms; peak "
           f"memory of forward + backward {peak / 2**20:.1f} MiB above the {held / 2**20:.0f} MiB held before "
           f"[{smi}]")
@@ -866,8 +928,8 @@ def engine_phase(dev, smi: str, gen):
 
     print(f"      (a) to the gradient check took {time.perf_counter() - t_phase:.1f} s")
 
-    # the device's share of one forward, from a trace of the device alone
-    # (host events too would trace every one of the 100,000 operations twice)
+    # the device's share of one (replayed) forward, from a trace of the device
+    # alone (host events too would trace every one of the 100,000 operations twice)
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -880,9 +942,9 @@ def engine_phase(dev, smi: str, gen):
     if on_card:
         busy_ms = sum(e.duration_ns() for e in on_card) / 1e6
         idle = 1.0 - busy_ms / fwd_ms
-        print(f"      one forward traced: {len(on_card)} device operations, {len(on_card) / n_steps:.1f} per "
-              f"step; device busy {busy_ms:.1f} ms of the untraced {fwd_ms:.1f} ms: idle share {idle:.1%} "
-              f"[{smi}]")
+        print(f"      one replayed forward traced: {len(on_card)} device operations, {len(on_card) / n_steps:.1f} "
+              f"per step; device busy {busy_ms:.1f} ms of the untraced replay's {fwd_ms:.1f} ms: idle share "
+              f"{idle:.1%} [{smi}]")
     else:
         print("      one forward traced: the profiler saw no device time; idle share and launches not measured")
 
@@ -1788,12 +1850,12 @@ def mesh_phase(dev, smi: str, fit, k) -> dict:
     loss(beta).backward()
     h = FD_STEP * STIFF[0]
     with torch.no_grad():
-        fd = float((loss(beta.detach() + h) - loss(beta.detach() - h)) / (2 * h))
+        _, fd, fd_route = routed(lambda: float((loss(beta.detach() + h) - loss(beta.detach() - h)) / (2 * h)))
     grad_rel = abs(float(beta.grad) - fd) / abs(fd)
     print(f"      d/dbeta of sum(I) / 1e4 over {GRAD_DAYS} days through TRBDF2 at dt = {DT}: autograd "
           f"{float(beta.grad):.10e}, "
-          f"central differences (h = {h:g}) {fd:.10e}: rel {grad_rel:.3e} (tol {TOL_FD:.0e}); "
-          f"{time.perf_counter() - t:.1f} s")
+          f"central differences (h = {h:g}; their two solves: {fd_route}) {fd:.10e}: rel {grad_rel:.3e} (tol "
+          f"{TOL_FD:.0e}); {time.perf_counter() - t:.1f} s")
     check(grad_rel <= TOL_FD, f"TRBDF2 gradient vs central differences: {grad_rel:.3e}")
     print(f"      (a) took {time.perf_counter() - t_phase:.1f} s")
 
@@ -1807,42 +1869,32 @@ def mesh_phase(dev, smi: str, fit, k) -> dict:
     def ensemble():
         return simulate_ensemble(ode, STIFF_ENSEMBLE_DAYS, y32, p32, sp32)
 
-    from torch.profiler import ProfilerActivity, profile
-
-    walls = []
-    for run in range(3):  # eager: (a) ran the same operations, so no warm-up; the device traced in the last
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        if run < 2:
-            ens = ensemble()
-        else:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                ens = ensemble()
-                torch.cuda.synchronize()
-        float(ens.ys[0][-1, -1])
-        walls.append(time.perf_counter() - t)
-    ens_s = statistics.median(walls)
+    # one key three times: eager, capture, replay (the kept solve)
+    runs = [routed(ensemble) for _ in range(3)]
+    (eager_s, ens, route), (cap_s, cap, cap_route), (rep_s, rep, rep_route) = runs
+    capture_s = last_capture()
+    check((route, cap_route, rep_route) == ("eager", "capture", "replay"),
+          f"the stiff ensemble's calls took {route}, {cap_route}, {rep_route}")
+    check(same_solution(cap, ens) and same_solution(rep, ens), "a kept stiff ensemble differs from the eager one")
+    del cap, rep
     n_steps = (ens.stats["num_accepted"] + ens.stats["num_rejected"]).cpu()
     check(int(ens.result.max()) == 0, "stiff ensemble: a member did not finish")
     pick = torch.randperm(STIFF_ENSEMBLE, generator=torch.Generator().manual_seed(SEED))[:STIFF_PICK].tolist()
-    member_err, same_steps = 0.0, True
-    t = time.perf_counter()
-    for i in pick:
+    member_err, same_steps, singles = 0.0, True, []
+    for i in pick:  # one key: eager, capture, then replays
         _, p_i = stiff_inputs(torch.float32, dev, beta=betas[i:i + 1])
-        one = simulate_ensemble(ode, STIFF_ENSEMBLE_DAYS, y32, p_i, sp32)
+        single_s, one, single_route = routed(lambda: simulate_ensemble(ode, STIFF_ENSEMBLE_DAYS, y32, p_i, sp32))
+        singles.append(f"{single_s:.2f} s {single_route}")
         member_err = max(member_err, rel64([x[0] for x in one.ys], [x[i] for x in ens.ys]))
         same_steps &= all(int(one.stats[key][0]) == int(ens.stats[key][i]) for key in ("num_accepted", "num_rejected"))
-    single_s = (time.perf_counter() - t) / STIFF_PICK
-    on_card = [e for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
-    busy_s = sum(e.duration_ns() for e in on_card) / 1e9
-    idle = f"{1.0 - busy_s / walls[2]:.1%} ({len(on_card)} device operations, busy {busy_s:.3f} s of the traced run's " \
-        f"{walls[2]:.2f} s)" if on_card else "not measured (the profiler saw no device time)"
     print(f"  (b) stiff ensemble: {STIFF_ENSEMBLE} members, {STIFF_ENSEMBLE_DAYS} days, beta ~ Uniform(0.2, 0.4), "
-          f"float32, batch_leading, TRBDF2: "
-          f"wall {ens_s:.2f} s (median of 3; host clock), steps per member min / median / max "
-          f"{int(n_steps.min())} / {int(n_steps.median())} / {int(n_steps.max())}, every result 0; device idle share "
-          f"{idle}; {STIFF_PICK} members against single-member solves ({single_s:.2f} s each): max rel "
-          f"{member_err:.3e} (tol {TOL_STIFF_MEMBER:.0e}), equal steps {same_steps} [{smi}]")
+          f"float32, batch_leading, TRBDF2 (stiff_4096, one key, host clock): eager {eager_s:.2f} s ({route}), "
+          f"capture {cap_s:.2f} s ({cap_route}: the capture {capture_s:.2f} s, then a replay), "
+          f"replay {rep_s:.3f} s ({rep_route}), both bit for bit with the eager call; steps per member min / "
+          f"median / max {int(n_steps.min())} / {int(n_steps.median())} / {int(n_steps.max())}, every result 0; "
+          f"eager / replay {eager_s / rep_s:.1f}x; {STIFF_PICK} members against single-member solves "
+          f"({', '.join(singles)}): max rel {member_err:.3e} (tol {TOL_STIFF_MEMBER:.0e}), equal steps {same_steps} "
+          f"[{smi}]")
     check(member_err <= TOL_STIFF_MEMBER and same_steps, f"stiff members vs single solves: {member_err:.3e}")
     print(f"      (a) and (b) took {time.perf_counter() - t_phase:.1f} s")
 
@@ -1914,18 +1966,15 @@ def mesh_phase(dev, smi: str, fit, k) -> dict:
          lambda m: simulate_ensemble(model.multistrain_ode, int(DAYS), y0, lane_p, sp_c, layout="lane_major", mesh=m),
          (lane, lane_s)),
         (f"(b)'s stiff ensemble: batch_leading B={STIFF_ENSEMBLE}, TRBDF2 (unsplit: (b))",
-         lambda m: simulate_ensemble(ode, STIFF_ENSEMBLE_DAYS, y32, p32, sp32, mesh=m), (ens, ens_s)),
+         lambda m: simulate_ensemble(ode, STIFF_ENSEMBLE_DAYS, y32, p32, sp32, mesh=m), (ens, eager_s)),
     ):
         whole, whole_s = done
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        got = call(mesh)
-        torch.cuda.synchronize()
-        split_s = time.perf_counter() - t
+        with eager_route():  # the shards' solves eager, as the unsplit call they are held to
+            split_s, got, split_route = routed(lambda: call(mesh))
         same = all(torch.equal(a, b) for a, b in zip(got.ys, whole.ys)) and torch.equal(got.result, whole.result)
         same &= all(torch.equal(got.stats[key], whole.stats[key]) for key in whole.stats)
-        print(f"  (d) simulate_ensemble(mesh=) {what}: bit for bit {same}; split {split_s:.2f} s, unsplit "
-              f"{whole_s:.2f} s")
+        print(f"  (d) simulate_ensemble(mesh=) {what}: bit for bit {same}; split {split_s:.2f} s (the shards' "
+              f"solves eager: {split_route}), unsplit {whole_s:.2f} s (eager)")
         check(same, f"simulate_ensemble(mesh=) differs: {what}")
         del whole, got
 
@@ -2652,13 +2701,21 @@ def examples_phase(dev, smi: str) -> dict:
         # (a) the simulation examples in float64, card against CPU
         for name in EXAMPLE_SIMULATIONS:
             mod = example_module(name)
-            t = time.perf_counter()
-            card = mod.run(dev, dtype=torch.float64)
-            torch.cuda.synchronize()
-            card_s = time.perf_counter() - t
-            t = time.perf_counter()
-            host = mod.run(cpu, dtype=torch.float64)
-            cpu_s = time.perf_counter() - t
+            depth, kw = EXAMPLE_SIM_CUTS.get(name, ({}, {}))
+            own = {attr: getattr(mod, attr) for attr in depth}
+            for attr, value in depth.items():
+                setattr(mod, attr, value)
+            try:
+                t = time.perf_counter()
+                card = mod.run(dev, dtype=torch.float64, **kw)
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - t
+                t = time.perf_counter()
+                host = mod.run(cpu, dtype=torch.float64, **kw)
+                cpu_s = time.perf_counter() - t
+            finally:
+                for attr, value in own.items():
+                    setattr(mod, attr, value)
             errs = {}
             for key, want in host.items():
                 got = card[key]
@@ -2669,7 +2726,7 @@ def examples_phase(dev, smi: str) -> dict:
                 else:
                     check(got == want, f"(a) {name} {key}: {got} on the card, {want} on the CPU")
             worst = max(errs, key=errs.get)
-            print(f"  (a) {name}: card {card_s:.2f} s, CPU {cpu_s:.2f} s, float64; {len(errs)} arrays, max rel err "
+            print(f"  (a) {name}{f' {depth or kw}' if depth or kw else ''}: card {card_s:.2f} s, CPU {cpu_s:.2f} s, float64; {len(errs)} arrays, max rel err "
                   f"{errs[worst]:.3e} ({worst}; tol {TOL_CARD_CPU:.0e}) [{smi}]")
             check(errs[worst] <= TOL_CARD_CPU, f"(a) {name}: card vs CPU rel err {errs[worst]:.3e}")
         print(f"      (a) took {time.perf_counter() - t_phase:.1f} s")
@@ -2964,6 +3021,81 @@ def median_ms(fn):
         wall, out = wall_ms(fn)
         walls.append(wall)
     return statistics.median(walls), out
+
+
+def routed(fn):
+    """(wall s, result, route) of one call of ``fn``, the card synchronized
+    before and after: the route of the engine's kept solves it ran
+    (``ode.integrate._ROUTES``): ``eager`` (a key's first call),
+    ``capture`` (its second), ``replay``, or ``not kept`` (gradients,
+    ``torch.func``, a solve inside another capture)."""
+    import torch
+
+    from dynode_tpu_torch.ode import integrate
+
+    before = dict(integrate._ROUTES)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    moved = {k: v - before.get(k, 0) for k, v in integrate._ROUTES.items() if v != before.get(k, 0)}
+    route = " + ".join(k if moved[k] == 1 else f"{moved[k]} {k}" for k in ("eager", "capture", "replay")
+                       if k in moved) or "not kept"
+    return wall, out, route
+
+
+def last_capture() -> float:
+    """The capture's wall (s) of the most recently kept solve (its key's
+    first, eager call was the warm-up)."""
+    from dynode_tpu_torch.ode import integrate
+
+    return next(reversed(integrate._SOLVE_CACHE.values()))["capture_s"]
+
+
+@contextlib.contextmanager
+def eager_route():
+    """Within the block the engine solves eagerly on the card too (the
+    reference that a replay is held to bit for bit)."""
+    from dynode_tpu_torch.ode import integrate
+
+    graphed = integrate._graphed
+    integrate._graphed = lambda device: False
+    try:
+        yield
+    finally:
+        integrate._graphed = graphed
+
+
+def same_solution(a, b) -> bool:
+    """Two solutions bit for bit: every save (NaN where the other's is),
+    the grid, the statistics and the result."""
+    import torch
+    import torch.utils._pytree as tree
+
+    la, lb = tree.tree_leaves(a), tree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and torch.equal(x.isnan(), y.isnan()) and torch.equal(x.nan_to_num(), y.nan_to_num())
+        for x, y in zip(la, lb))
+
+
+def device_busy(fn):
+    """(device busy s, device operations, traced wall s) of one call of
+    ``fn`` from a trace of the card alone (``torch.profiler``; the wall
+    ends at the synchronize, before the trace is read), or None where the
+    profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    on_card = [e for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
+    if not on_card:
+        return None
+    return sum(e.duration_ns() for e in on_card) / 1e9, len(on_card), wall
 
 
 def main() -> int:

@@ -67,6 +67,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from .. import _device
+from .._graphs import EXEC_CACHE_SIZE
 from ..parallel.mesh import (
     check_mesh,
     create_mesh,
@@ -232,7 +233,7 @@ class GraphedPotential:
 
 
 _EXEC_CACHE: "OrderedDict[tuple, dict]" = OrderedDict()
-_EXEC_CACHE_SIZE = 8
+_EXEC_CACHE_SIZE = EXEC_CACHE_SIZE
 
 
 def _release_entry(entry: dict) -> None:

@@ -34,12 +34,41 @@ Semantics kept from JAX:
   JAX's ``vmap(diffeqsolve)``. The RHS and the ``SubSaveAt`` function are
   mapped over the members with ``torch.func.vmap``. ``ys``, ``ts``,
   ``stats`` and ``result`` gain a leading member axis.
+- **Kept solves** (JAX's jit cache on its engines). On a card, a call
+  without gradients takes the kept-graph route (:func:`_kept_solve`): the
+  first call of a key runs eagerly and records the key; the second copies
+  its tensors into static buffers, captures the engine call on them into
+  a CUDA graph and replays it; every later call copies its tensors in and
+  replays. The key is what JAX's jit keys on plus what the port bakes:
+  the engine and its static sizes, the RHS and ``SubSaveAt`` functions by
+  identity, the solver and controller by class and fields, the host
+  values of ``t0``, ``t1``, ``dt0`` and the save grid, the arguments' tree
+  structure and non-tensor leaves by value, each tensor's shape, strides,
+  dtype and device, and the default dtype; never a tensor's values, which
+  are copied in as JAX traces arrays. Tensors that the RHS closes over are
+  read by the graph at their addresses, as JAX bakes closed-over arrays
+  into its program: change them by making a new function, not in place.
+  The grid and constant-direct engines are one graph each; the buffered
+  engine is three (first carry, one chunk, dense output), its chunk
+  replayed from the host until every member is done, where the eager
+  loop stops too. A replay equals the eager call bit for bit. Gradients
+  (of the arguments, or, by a probe of the RHS at ``t0``, of a tensor it
+  closes over), ``torch.func`` transforms, a call inside another capture,
+  and times or grids on the card stay eager. A key seen once holds its
+  functions weakly: a function made for one call (the adaptive
+  lane-major split over a mesh makes one) is forgotten with it, never
+  captured. A capture that meets a host sync raises ``GraphCaptureError``
+  naming the line; it never runs eagerly instead.
+  :func:`clear_solve_cache` drops the kept solves.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import types
+import weakref
+from collections import Counter, OrderedDict
 from typing import Any, Optional
 
 import numpy as np
@@ -48,7 +77,7 @@ import torch.utils._pytree as pytree
 from torch.func import vmap
 from torch.utils.checkpoint import checkpoint
 
-from .. import _device
+from .. import _device, _graphs
 from .controllers import (
     AbstractStepSizeController,
     ConstantStepSize,
@@ -222,7 +251,7 @@ def _stats(na, nr, budget: int):
     }
 
 
-def _solve(
+def _buffered(
     term: ODETerm,
     solver: AbstractSolver,
     controller: AbstractStepSizeController,
@@ -238,23 +267,25 @@ def _solve(
     save_ts,
     bshape: tuple,
     grad: bool,
-) -> Solution:
-    """The buffered two-phase engine (JAX ``_solve``).
+):
+    """The parts of the buffered two-phase engine (JAX ``_solve``):
+    ``(start, run_chunk, done, finish)``.
 
-    ``t0`` and ``t1`` are 0-d, ``bshape`` the batch shape. Every step
-    emits its segment ``(t_start, t_end before a hop, y_end)`` into a
-    ``(budget, ...)`` buffer, run in chunks of ``chunk`` steps. Each save
-    time is then located with ``searchsorted`` and evaluated by one fresh
-    RK step from the start of its segment, all save times at once.
+    ``t0`` and ``t1`` are 0-d, ``bshape`` the batch shape. ``start()``
+    makes the first carry; ``run_chunk(carry)`` takes ``chunk`` steps,
+    each emitting its segment ``(t_start, t_end before a hop, y_end)``;
+    ``done(carry)`` tells, on the device, whether every member is done;
+    ``finish(carry, t_starts, t_ends, y_ends)`` takes the ``(budget, ...)``
+    segments, locates each save time with ``searchsorted`` and evaluates
+    it by one fresh RK step from the start of its segment, all save times
+    at once. :func:`_solve` drives them eagerly, :func:`_kept_buffered` as
+    graphs.
     """
     nb = len(bshape)
     n_chunks = budget // chunk
     adaptive = controller.adaptive
     host_skips = _host_skips(t0.device)
     t0, t1 = t0.expand(bshape), t1.expand(bshape)
-
-    f0 = term.vf(t0, y0, args)
-    dt_init = _init_dt(controller, term, solver, t0, t1, y0, f0, args, dt0)
     pid = _unwrap_pid(controller)
     jump_grid = _jump_grid(controller, t0)
     clamp = getattr(controller, "clamp_dt", None)
@@ -326,53 +357,116 @@ def _solve(
         return carry, (torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]),
                        _stack([o[2] for o in outs], 0))
 
-    zero_i = torch.zeros(t0.shape, dtype=torch.int32, device=t0.device)
-    yc0 = tuple(torch.zeros_like(leaf) for leaf in y0) if compensated else ()
-    carry = (t0, torch.zeros_like(t0), y0, yc0, f0, dt_init, zero_i, zero_i)
-    chunk_fn = _checkpointed(run_chunk, grad and n_chunks > 1)
+    def start():
+        f0 = term.vf(t0, y0, args)
+        dt_init = _init_dt(controller, term, solver, t0, t1, y0, f0, args, dt0)
+        zero_i = torch.zeros(t0.shape, dtype=torch.int32, device=t0.device)
+        yc0 = tuple(torch.zeros_like(leaf) for leaf in y0) if compensated else ()
+        return (t0, torch.zeros_like(t0), y0, yc0, f0, dt_init, zero_i, zero_i)
+
+    def done(carry):
+        return (carry[0] >= t_done).all()
+
+    def finish(carry, t_starts, t_ends, y_ends) -> Solution:
+        t_final, na, nr = carry[0], carry[6], carry[7]
+        result = torch.where(t_final >= t_done, RESULT_SUCCESS, RESULT_MAX_STEPS).to(torch.int32)
+
+        # ---- dense output: locate each save time's segment, then re-step ------
+        # one fresh RK step of size (s - t_start) from the segment's start: the
+        # solver's own order, linear invariants kept, segment ends bit for bit
+        y_starts = tuple(torch.cat([first[None], ends_[:-1]]) for ends_, first in zip(y_ends, y0))
+        save_q = save_ts.expand(t0.shape + save_ts.shape).contiguous()
+        seg = torch.searchsorted(t_ends.movedim(0, -1).contiguous(), save_q, side="left")
+        seg = seg.clamp(0, budget - 1)
+        ta = torch.gather(t_starts.movedim(0, -1), -1, seg)
+        if nb:
+            rows = torch.arange(seg.shape[0], device=seg.device)[:, None]
+            ya = tuple(leaf.movedim(0, 1)[rows, seg] for leaf in y_starts)
+        else:
+            ya = tuple(leaf[seg] for leaf in y_starts)
+        over_saves = ODETerm(vmap(term.vf, in_dims=(nb, nb, None), out_dims=nb))
+        dt_q = torch.clamp(save_q - ta, min=0.0)
+        ys, _, _ = solver.step(over_saves, ta, dt_q, ya, args, f0=None, error=False)
+
+        unreached = save_q > (t_final + t1_eps).unsqueeze(-1)
+        ys = tuple(torch.where(_bcast(unreached, leaf), torch.full_like(leaf, math.nan), leaf) for leaf in ys)
+        if subs is not None:
+            ys = vmap(lambda t, y: subs(t, y, args), in_dims=(0, nb), out_dims=nb)(save_ts, ys)
+
+        return Solution(t0=t0, t1=t1, ts=save_q, ys=ys, stats=_stats(na, nr, budget), result=result)
+
+    return start, _checkpointed(run_chunk, grad and n_chunks > 1), done, finish
+
+
+def _solve(term, solver, controller, subs, budget: int, chunk: int, compensated: bool, t0, t1, dt0, y0, args,
+           save_ts, bshape: tuple, grad: bool) -> Solution:
+    """The buffered two-phase engine (JAX ``_solve``), driven eagerly
+    (:func:`_buffered`): the step buffers are the chunks' segments,
+    concatenated. Once per chunk the host asks whether every member is
+    done, and then fills the rest of the buffers itself: every later step
+    of a finished solve emits ``(t, t, y)``, which is what JAX's
+    ``lax.scan`` over the remaining chunks emits."""
+    start, chunk_fn, done, finish = _buffered(term, solver, controller, subs, budget, chunk, compensated,
+                                              t0, t1, dt0, y0, args, save_ts, bshape, grad)
+    n_chunks = budget // chunk
+    carry = start()
     starts, ends, y_ends = [], [], []
     for c in range(n_chunks):
         carry, (ts_c, te_c, ye_c) = chunk_fn(carry)
         starts.append(ts_c)
         ends.append(te_c)
         y_ends.append(ye_c)
-        # once per chunk: every later step of a finished solve emits (t, t, y)
         left = (n_chunks - c - 1) * chunk
-        if left and not _under_functorch() and bool((carry[0] >= t_done).all()):
+        if left and not _under_functorch() and bool(done(carry)):
             t = carry[0]
             starts.append(t.expand((left,) + t.shape))
             ends.append(t.expand((left,) + t.shape))
             y_ends.append(tuple(leaf.expand((left,) + leaf.shape) for leaf in carry[2]))
             break
-    t_starts, t_ends = torch.cat(starts), torch.cat(ends)
     y_ends = tuple(torch.cat(leaves) for leaves in zip(*y_ends))
+    return finish(carry, torch.cat(starts), torch.cat(ends), y_ends)
 
-    t_final, na, nr = carry[0], carry[6], carry[7]
-    result = torch.where(t_final >= t_done, RESULT_SUCCESS, RESULT_MAX_STEPS).to(torch.int32)
 
-    # ---- dense output: locate each save time's segment, then re-step ------
-    # one fresh RK step of size (s - t_start) from the segment's start: the
-    # solver's own order, linear invariants kept, segment ends bit for bit
-    y_starts = tuple(torch.cat([first[None], ends_[:-1]]) for ends_, first in zip(y_ends, y0))
-    save_q = save_ts.expand(t0.shape + save_ts.shape).contiguous()
-    seg = torch.searchsorted(t_ends.movedim(0, -1).contiguous(), save_q, side="left")
-    seg = seg.clamp(0, budget - 1)
-    ta = torch.gather(t_starts.movedim(0, -1), -1, seg)
-    if nb:
-        rows = torch.arange(seg.shape[0], device=seg.device)[:, None]
-        ya = tuple(leaf.movedim(0, 1)[rows, seg] for leaf in y_starts)
-    else:
-        ya = tuple(leaf[seg] for leaf in y_starts)
-    over_saves = ODETerm(vmap(term.vf, in_dims=(nb, nb, None), out_dims=nb))
-    dt_q = torch.clamp(save_q - ta, min=0.0)
-    ys, _, _ = solver.step(over_saves, ta, dt_q, ya, args, f0=None, error=False)
+def _kept_buffered(parts, budget: int, chunk: int, phase):
+    """The buffered engine's kept solve (:func:`_buffered`'s ``parts``): a
+    function that runs it through ``phase`` (:func:`_phase`) as three
+    graphs, the first carry with the step buffers, one chunk, and the
+    dense output; the chunk's graph is replayed once per chunk from the
+    host. After each chunk the host copies its segments into the step
+    buffers and reads the done flag, as the eager loop (:func:`_solve`)
+    does: the same chunks run, the same bits come out, and a solve that
+    is done early stops early."""
+    start, chunk_fn, done, finish = parts
+    n_chunks = budget // chunk
 
-    unreached = save_q > (t_final + t1_eps).unsqueeze(-1)
-    ys = tuple(torch.where(_bcast(unreached, leaf), torch.full_like(leaf, math.nan), leaf) for leaf in ys)
-    if subs is not None:
-        ys = vmap(lambda t, y: subs(t, y, args), in_dims=(0, nb), out_dims=nb)(save_ts, ys)
+    def begin():
+        # the carry in memory of its own, which every chunk rewrites
+        carry = pytree.tree_map(lambda x: x.clone(memory_format=torch.contiguous_format), start())
+        t, y = carry[0], carry[2]
+        steps = (t.new_empty((budget,) + t.shape), t.new_empty((budget,) + t.shape),
+                 tuple(leaf.new_empty((budget,) + leaf.shape) for leaf in y))
+        return carry, steps
 
-    return Solution(t0=t0, t1=t1, ts=save_q, ys=ys, stats=_stats(na, nr, budget), result=result)
+    def advance(carry):
+        new, segments = chunk_fn(carry)
+        for buf, x in zip(pytree.tree_leaves(carry), pytree.tree_leaves(new)):
+            buf.copy_(x)
+        return segments, done(carry)
+
+    def run() -> Solution:
+        carry, (t_starts, t_ends, y_ends) = phase("start", begin)
+        steps = (t_starts, t_ends, *y_ends)
+        for c in range(n_chunks):
+            (ts_c, te_c, ye_c), finished = phase("chunk", lambda: advance(carry))
+            for buf, x in zip(steps, (ts_c, te_c, *ye_c)):
+                buf[c * chunk:(c + 1) * chunk].copy_(x)
+            if c + 1 < n_chunks and bool(finished):
+                for buf, x in zip(steps, (carry[0], carry[0], *carry[2])):
+                    buf[(c + 1) * chunk:].copy_(x.expand(buf[(c + 1) * chunk:].shape))
+                break
+        return phase("finish", lambda: finish(carry, t_starts, t_ends, y_ends))
+
+    return run
 
 
 def _solve_adaptive_grid(
@@ -605,6 +699,197 @@ def _end_grid(t0, t1, t0_arr, t1_arr, fdtype, device):
     return _device.from_host((st0, st1), device, fdtype)
 
 
+#: the kept solves, JAX's jit cache on the engines: key -> entry
+#: (:func:`_kept_solve`), at most ``_graphs.EXEC_CACHE_SIZE``. An entry
+#: holds the functions its key names: its graphs read what they close over
+_SOLVE_CACHE: "OrderedDict[tuple, dict]" = OrderedDict()
+#: the keys solved once, eagerly: each with weak references to the objects
+#: its key names by identity (the key is forgotten when one dies) and the
+#: device constants its call kept, which the next call (the capture) reads
+_SEEN: "OrderedDict[tuple, tuple]" = OrderedDict()
+_SEEN_SIZE = 64
+#: calls of the kept-graph route by the route they took: "eager" (a key's
+#: first call), "capture" (its second) and "replay"
+_ROUTES: Counter = Counter()
+
+
+def _graphed(device: torch.device) -> bool:
+    """Whether a solve on ``device`` takes the kept-graph route: on a card.
+    (CPU tests set it True, and then the static buffers are solved eagerly.)"""
+    return device.type == "cuda"
+
+
+def _capturing(device: torch.device) -> bool:
+    """Whether the current stream is capturing a graph (``MCMC``'s and
+    SVI's capture a solve inside theirs: a graph does not nest)."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def _identity(fn) -> tuple:
+    """The objects a function is keyed by: itself, or a bound method's
+    function and owner (the method is a new object at every access)."""
+    if isinstance(fn, types.MethodType):
+        return (fn.__func__, fn.__self__)
+    return (fn,)
+
+
+def _static_token(obj):
+    """A solver or a controller as JAX hashes a static argument: its class
+    and its fields by value, nested objects alike. Raises ``TypeError`` on
+    a field it cannot take by value (a tensor, a function)."""
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    if isinstance(obj, (tuple, list)):
+        return tuple(_static_token(x) for x in obj)
+    if isinstance(obj, (torch.Tensor, types.FunctionType, types.MethodType)) or not hasattr(obj, "__dict__"):
+        raise TypeError(f"no static value for {type(obj).__name__}")
+    return (type(obj), tuple((k, _static_token(v)) for k, v in sorted(vars(obj).items())))
+
+
+def _leaf_token(x):
+    """A leaf of the state or the arguments in a key: a tensor's shape,
+    strides, dtype and device (never its values); any other leaf by value."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.stride(), x.dtype, x.device)
+    if isinstance(x, np.ndarray):
+        return (x.shape, x.dtype.str, x.tobytes())
+    hash(x)  # TypeError for an unhashable leaf
+    return (type(x), x)
+
+
+def _tracks_grad(fns) -> bool:
+    """Whether any output of the calls ``fns`` requires grad."""
+    return any(isinstance(x, torch.Tensor) and x.requires_grad for fn in fns for x in pytree.tree_leaves(fn()))
+
+
+def _expanded(x: torch.Tensor) -> tuple:
+    """An index that keeps one element along each expanded (stride-0)
+    dimension of ``x`` and the whole of every other."""
+    return tuple(slice(0, 1) if st == 0 and n > 1 else slice(None) for n, st in zip(x.shape, x.stride()))
+
+
+def _fresh(x):
+    """A tensor ``x`` copied into memory of its own, laid out as ``x``: its
+    expanded dimensions stay views of one element."""
+    return x.detach()[_expanded(x)].clone().expand(x.shape) if isinstance(x, torch.Tensor) else x
+
+
+def _tensor_inputs(y0, args) -> list:
+    """The tensors a kept solve copies in: ``y0``'s leaves, then ``args``'."""
+    return [*y0, *(x for x in pytree.tree_leaves(args) if isinstance(x, torch.Tensor))]
+
+
+def _phase(entry: dict, name: str, fn):
+    """``fn()``, the phase ``name`` of a kept solve. On a card its first
+    run captures it into a graph with host syncs raising
+    (:func:`_graphs.capture`), inside the constants the key's first
+    (eager) call kept, so that none is copied; every run replays the
+    graph and returns its static outputs. On CPU tensors ``fn()`` runs."""
+    device = entry["device"]
+    if device.type != "cuda":
+        return fn()
+    if name not in entry["graphs"]:
+        graph, _, out, _, capture_s = _graphs.capture(device, entry["constants"], lambda: None, fn,
+                                                      f"the ODE solve ({name})")
+        entry["graphs"][name] = (graph, out, fn)
+        entry["capture_s"] = (entry["capture_s"] or 0.0) + capture_s
+    graph, out, _ = entry["graphs"][name]
+    graph.replay()
+    return out
+
+
+def _solve_entry(run, y0, args, device: torch.device, objects: list, constants: dict) -> dict:
+    """A kept solve: static buffers that hold ``y0``'s and ``args``'
+    tensors, and ``entry["run"]``, the engine's call on them through
+    :func:`_phase`, built once (``run(y, a, phase)``). Each phase is
+    captured at its first run, on the key's second call."""
+    leaves, spec = pytree.tree_flatten(args)
+    inputs = _tensor_inputs(y0, args)
+    with torch.inference_mode(False):
+        bufs = [x.detach()[_expanded(x)].clone() for x in inputs]
+    views = iter([b.expand(x.shape) for b, x in zip(bufs, inputs)])
+    y_in = tuple(next(views) for _ in y0)
+    a_in = pytree.tree_unflatten([next(views) if isinstance(x, torch.Tensor) else x for x in leaves], spec)
+    entry = {"objects": objects, "fps": [], "bufs": bufs, "y0": y_in, "args": a_in, "device": device,
+             "graphs": {}, "constants": constants, "replays": 0, "capture_s": None}
+    with _device.keep_constants(constants):
+        entry["run"] = run(y_in, a_in, functools.partial(_phase, entry))
+    return entry
+
+
+def _release_solve(entry: dict) -> None:
+    """Free a kept solve's graphs, its buffers and its kept constants."""
+    entry.update(graphs={}, constants={}, bufs=None, y0=None, args=None, run=None)
+
+
+def _remember(key: tuple, objects: list, constants: dict) -> None:
+    """Record ``key``'s first call: weak references to ``objects`` (an
+    object that takes none, as ``None``, is held), whose death forgets the
+    key, and the call's kept ``constants``; at most ``_SEEN_SIZE`` keys."""
+    def forget(_ref, key=key):
+        _SEEN.pop(key, None)
+
+    refs = []
+    for obj in objects:
+        try:
+            refs.append(weakref.ref(obj, forget))
+        except TypeError:
+            refs.append(lambda obj=obj: obj)
+    _SEEN[key] = (refs, constants)
+    while len(_SEEN) > _SEEN_SIZE:
+        _SEEN.popitem(last=False)
+
+
+def clear_solve_cache() -> None:
+    """Drop every kept solve, releasing its graphs (JAX's cache clear), and
+    forget the keys solved once. The memory goes back to the caching
+    allocator, which ``torch.cuda.empty_cache()`` returns to the card."""
+    while _SOLVE_CACHE:
+        _release_solve(_SOLVE_CACHE.popitem()[1])
+    _SEEN.clear()
+
+
+def _kept_solve(key: tuple, objects: list, run, y0, args, device: torch.device) -> Solution:
+    """``run(y0, args, None)``, an engine call, by the kept-graph route.
+
+    A key's first call runs eagerly, keeping the device constants it
+    places, and records the key (:func:`_remember`). The second builds the
+    entry (:func:`_solve_entry`) and runs it, capturing each phase; the
+    next ones copy ``y0``'s and ``args``' tensors into its buffers and run
+    it, replaying. Each returns copies of the outputs, which the next
+    replay rewrites. A capture that fails raises, and the key's next call
+    captures again."""
+    entry = _graphs.cached(_SOLVE_CACHE, key, objects, [], "diffeqsolve")
+    if entry is not None:
+        for buf, x in zip(entry["bufs"], _tensor_inputs(y0, args)):
+            buf.copy_(x.detach()[_expanded(x)])
+        out = entry["run"]()
+        route = "replay"
+    else:
+        seen = _SEEN.pop(key, None)
+        if seen is None or any(ref() is not obj for ref, obj in zip(seen[0], objects)):
+            constants = {}
+            with _device.keep_constants(constants):
+                out = run(y0, args, None)
+            _remember(key, objects, constants)
+            _ROUTES["eager"] += 1
+            return out
+        entry = None
+        try:
+            entry = _solve_entry(run, y0, args, device, objects, seen[1])
+            out = entry["run"]()
+        except BaseException:
+            if entry is not None:
+                _release_solve(entry)
+            _remember(key, objects, seen[1])
+            raise
+        _graphs.keep(_SOLVE_CACHE, key, entry, _release_solve, _graphs.EXEC_CACHE_SIZE)
+        route = "capture"
+    entry["replays"] += 1
+    _ROUTES[route] += 1
+    return pytree.tree_map(_fresh, out)
+
+
 def diffeqsolve(
     term,
     solver: AbstractSolver,
@@ -643,6 +928,11 @@ def diffeqsolve(
     ``batched=True`` solves a batch-leading ensemble: ``y0``'s leaves and
     ``args``' tensors carry a leading member axis, and each member gets its
     own dt chain, as JAX's ``vmap(diffeqsolve)``.
+
+    On a card a call without gradients is a kept solve, as JAX jits its
+    engines: a key's first call runs eagerly, its second captures the
+    engine into a CUDA graph and later calls replay it with their own
+    tensors (module docstring, :func:`_kept_solve`).
     """
     if callable(term) and not isinstance(term, ODETerm):
         term = ODETerm(term)
@@ -673,9 +963,49 @@ def diffeqsolve(
     else:
         save_ts, save_np = _save_grid(saveat.ts, fdtype, device)
 
-    if batched:
-        term = ODETerm(_member_map(term.vf, args), member_fn=term.vf)
-        subs_fn = _member_map(subs_fn, args) if subs_fn is not None else None
+    compensated = bool(compensated_summation)
+    rhs = term.vf
+    kept = not grad and not _under_functorch() and _graphed(device) and not _capturing(device)
+
+    def terms(a):
+        """The term and ``SubSaveAt`` function the engine calls with the
+        arguments ``a``: mapped over the members of a batch-leading solve."""
+        if not batched:
+            return term, subs_fn
+        return (ODETerm(_member_map(rhs, a), member_fn=rhs),
+                _member_map(subs_fn, a) if subs_fn is not None else None)
+
+    def tracks_grad() -> bool:
+        """With autograd on, whether the RHS or the ``SubSaveAt`` function,
+        probed at ``t0``, tracks a gradient through a tensor it closes
+        over: a graph would cut it from autograd, so the call stays eager."""
+        if not torch.is_grad_enabled():
+            return False
+        tm, sb = terms(args)
+        probes = [lambda: tm.vf(t0_arr.expand(bshape), y0, args)]
+        if sb is not None:
+            probes.append(lambda: sb(save_ts[0], y0, args))
+        return _tracks_grad(probes)
+
+    def solve(statics: tuple, run) -> Solution:
+        """``run(y0, args, None)``, eagerly or by the kept-graph route."""
+        if kept:
+            objects = [*_identity(term.vector_field), *_identity(term.member_fn), *_identity(subs_fn)]
+            times = tuple(None if x is None else _static_float(x) for x in (t0, t1, dt0))
+            dynamic = any(v is None and x is not None for v, x in zip(times, (t0, t1, dt0)))
+            if not dynamic and (saveat is None or save_np is not None):
+                leaves, spec = pytree.tree_flatten(args)
+                try:
+                    key = (statics, batched, tuple(map(id, objects)), _static_token(solver),
+                           _static_token(stepsize_controller), times,
+                           None if save_np is None else save_np.tobytes(), spec,
+                           tuple(_leaf_token(x) for x in (*y0, *leaves)), torch.get_default_dtype())
+                    hash(key)
+                except TypeError:  # a part JAX could not hash either: stays eager
+                    key = None
+                if key is not None and not tracks_grad():
+                    return _kept_solve(key, objects, run, y0, args, device)
+        return run(y0, args, None)
 
     # ---- routing -----------------------------------------------------------
     adaptive = stepsize_controller.adaptive
@@ -693,11 +1023,17 @@ def diffeqsolve(
                     and abs(stride_f - stride) < 1e-9
                     and abs(stride * (n_pts - 1) * sdt - (st1 - st0)) < 1e-9
                 ):
-                    return _solve_constant_direct(
-                        term, solver, subs_fn, stride, n_pts, bool(compensated_summation),
-                        t0_arr, _device.scalar(sdt, fdtype, device),
-                        y0, args, save_ts, bshape, grad,
-                    )
+                    dt_arr = _device.scalar(sdt, fdtype, device)
+
+                    def run_direct(y, a, phase):
+                        def call():
+                            tm, sb = terms(a)
+                            return _solve_constant_direct(tm, solver, sb, stride, n_pts, compensated, t0_arr,
+                                                          dt_arr, y, a, save_ts, bshape, grad)
+
+                        return call() if phase is None else lambda: phase("solve", call)
+
+                    return solve(("constant_direct", stride, n_pts, compensated), run_direct)
         else:
             budget = step_budget or min(int(max_steps), DEFAULT_STEP_BUDGET)
     else:
@@ -714,12 +1050,17 @@ def diffeqsolve(
                 # headroom over the mean: adaptive step density is not
                 # uniform in time; the global budget still caps the work
                 k = max(-(-(5 * budget) // (4 * grid)) + 2, 6)
-            return _solve_adaptive_grid(
-                term, solver, stepsize_controller, subs_fn, k, grid + 1, budget,
-                bool(compensated_summation), t0_arr,
-                None if dt0 is None else _device.scalar(dt0, fdtype, device),
-                y0, args, save_ts, bshape, grad,
-            )
+            dt0_grid = None if dt0 is None else _device.scalar(dt0, fdtype, device)
+
+            def run_grid(y, a, phase):
+                def call():
+                    tm, sb = terms(a)
+                    return _solve_adaptive_grid(tm, solver, stepsize_controller, sb, k, grid + 1, budget,
+                                                compensated, t0_arr, dt0_grid, y, a, save_ts, bshape, grad)
+
+                return call() if phase is None else lambda: phase("solve", call)
+
+            return solve(("grid", k, grid + 1, budget, compensated), run_grid)
 
     if checkpoint_every is None:
         if budget <= 128:
@@ -732,10 +1073,16 @@ def diffeqsolve(
     budget = -(-budget // chunk) * chunk
 
     dt0_arr = None if dt0 is None else _device.scalar(dt0, fdtype, device)
-    return _solve(
-        term, solver, stepsize_controller, subs_fn, budget, chunk, bool(compensated_summation),
-        t0_arr, t1_arr, dt0_arr, y0, args, save_ts, bshape, grad,
-    )
+
+    def run_buffered(y, a, phase):
+        tm, sb = terms(a)
+        engine = (tm, solver, stepsize_controller, sb, budget, chunk, compensated, t0_arr, t1_arr, dt0_arr, y, a,
+                  save_ts, bshape, grad)
+        if phase is None:
+            return _solve(*engine)
+        return _kept_buffered(_buffered(*engine), budget, chunk, phase)
+
+    return solve(("buffered", budget, chunk, compensated), run_buffered)
 
 
-__all__ = ["diffeqsolve", "DEFAULT_STEP_BUDGET"]
+__all__ = ["diffeqsolve", "clear_solve_cache", "DEFAULT_STEP_BUDGET"]

@@ -1304,3 +1304,172 @@ def test_over_limit_shapes_raise_and_launch_nothing(cuda):
         tsp.launch_seip_bs3(y0, big, scales, n_saves=2, save_every=1.0, rtol=1e-4, atol=1e-3, dt0=0.125,
                             steps_per_save=8, block_b=16, save=(3,), save_dtype=torch.float32, packed=False)
     assert [c.launches for c in counters] == before
+
+
+def _solve_routes(fn):
+    """``fn()`` and the routes its kept solves took (``ode.integrate._ROUTES``)."""
+    from dynode_tpu_torch.ode import integrate
+
+    before = dict(integrate._ROUTES)
+    out = fn()
+    return out, {k: v - before.get(k, 0) for k, v in integrate._ROUTES.items() if v != before.get(k, 0)}
+
+
+def _bit_for_bit(a, b) -> bool:
+    import torch.utils._pytree as tree
+
+    la, lb = tree.tree_leaves(a), tree.tree_leaves(b)
+    return len(la) == len(lb) and all(x.shape == y.shape and torch.equal(x.isnan(), y.isnan())
+                                      and torch.equal(torch.nan_to_num(x), torch.nan_to_num(y))
+                                      for x, y in zip(la, lb))
+
+
+def _simulate_graph_case(name, dev):
+    """``call(k)``: the k-th solve of a ``chip_smoke.py`` cell whose key
+    repeats, with new parameters from k = 2 on."""
+    import chip_smoke
+    from dynode_tpu_torch import SolverParams, dist, simulate, simulate_ensemble
+    from dynode_tpu_torch.ode import TRBDF2
+
+    if name == "engine_anchor":  # phase 13 (a): 300 days, float64, the grid engine
+        p = model.multistrain_default_params(dtype=torch.float64, device=dev)
+        y = model.multistrain_initial_state(dtype=torch.float64, device=dev)
+        sp = SolverParams(step_budget=512)
+        return lambda k: simulate(model.multistrain_ode, 300, y, p.replace(beta=p.beta * (1.0 + 0.05 * (k >= 2))), sp)
+    if name == "stiff_ensemble":  # phase 17 (b): 4,096 members, TRBDF2, the buffered engine
+        ode, _ = chip_smoke.stiff_seirs()
+        betas = dist.Uniform(0.2, 0.4).sample(torch.Generator(device=dev).manual_seed(0), (chip_smoke.STIFF_ENSEMBLE,))
+        rtol, atol = chip_smoke.STIFF_TOLS
+        sp = SolverParams(solver_method=TRBDF2(), ode_solver_rel_tolerance=rtol, ode_solver_abs_tolerance=atol,
+                          step_budget=chip_smoke.STIFF_BUDGET)
+
+        def stiff(k):
+            y32, p32 = chip_smoke.stiff_inputs(torch.float32, dev, beta=betas * (1.0 + 0.1 * (k >= 2)))
+            return simulate_ensemble(ode, chip_smoke.STIFF_ENSEMBLE_DAYS, y32, p32, sp)
+
+        return stiff
+    # phase 13 (b): lane-major at 9,984 members, the constant-direct engine
+    params, y0, _ = _inputs(dev, batch=chip_smoke.ENSEMBLE)
+    gen_ = torch.Generator(device=dev).manual_seed(0)
+    scales = [chip_smoke.scenario_scales(gen_, chip_smoke.ENSEMBLE) for _ in range(2)]
+    sp = SolverParams(constant_step_size=0.5)
+    return lambda k: simulate_ensemble(model.multistrain_ode, int(DAYS), y0, _batched(params, scales[k >= 2]), sp,
+                                       layout="lane_major")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["engine_anchor", "stiff_ensemble", "lane_constant"])
+def test_simulate_graph_second_call_captures_and_third_replays_bit_for_bit(cuda, monkeypatch, name):
+    """A key's first call runs eagerly, its second captures (one entry) and
+    equals the first bit for bit, its third replays with new parameters and
+    equals an eager solve of them bit for bit; the first result is left as
+    it was."""
+    from dynode_tpu_torch.ode import integrate
+
+    integrate.clear_solve_cache()
+    call = _simulate_graph_case(name, cuda)
+    first, routes = _solve_routes(lambda: call(0))
+    assert routes == {"eager": 1} and len(integrate._SOLVE_CACHE) == 0
+    kept_first = [x.clone() for x in torch.utils._pytree.tree_leaves(first)]
+    second, routes = _solve_routes(lambda: call(1))
+    assert routes == {"capture": 1} and len(integrate._SOLVE_CACHE) == 1
+    (entry,) = integrate._SOLVE_CACHE.values()
+    assert set(entry["graphs"]) == ({"start", "chunk", "finish"} if name == "stiff_ensemble" else {"solve"})
+    assert entry["capture_s"] > 0
+    third, routes = _solve_routes(lambda: call(2))
+    assert routes == {"replay": 1} and entry["replays"] == 2
+    assert _bit_for_bit(second, first) and not _bit_for_bit(third, first)
+    assert all(torch.equal(a.nan_to_num(), b.nan_to_num()) for a, b in zip(torch.utils._pytree.tree_leaves(first),
+                                                                             kept_first))
+    monkeypatch.setattr(integrate, "_graphed", lambda device: False)
+    eager, routes = _solve_routes(lambda: call(2))
+    assert routes == {} and _bit_for_bit(third, eager)
+    assert int(third.result.max()) == 0
+    integrate.clear_solve_cache()
+
+
+@pytest.mark.cuda
+def test_simulate_graph_loop_with_new_parameters_captures_once(cuda, monkeypatch):
+    """Ten ``simulate`` calls of one model with new parameters (a scenario
+    loop, new parameter objects every call): one eager call, one capture,
+    eight replays, each the eager solve of its parameters bit for bit."""
+    from dynode_tpu_torch import SolverParams, simulate
+    from dynode_tpu_torch.ode import integrate
+
+    integrate.clear_solve_cache()
+    base = model.multistrain_default_params(device=cuda)
+    y0 = model.multistrain_initial_state(device=cuda)
+    sp = SolverParams(step_budget=256)
+
+    def call(k):
+        return simulate(model.multistrain_ode, 30, y0, base.replace(beta=base.beta * (0.9 + 0.02 * k)), sp)
+
+    sols, routes = _solve_routes(lambda: [call(k) for k in range(10)])
+    assert routes == {"eager": 1, "capture": 1, "replay": 8} and len(integrate._SOLVE_CACHE) == 1
+    integrate.clear_solve_cache()
+    monkeypatch.setattr(integrate, "_graphed", lambda device: False)
+    for k in (1, 5, 9):
+        assert _bit_for_bit(sols[k], call(k))
+
+
+@pytest.mark.cuda
+def test_simulate_graph_memory_comes_back_after_clearing(cuda):
+    """Kept solves hold their graphs' pools on the card;
+    ``clear_solve_cache`` releases them and ``empty_cache`` gives the
+    reserved memory back."""
+    import gc
+
+    from dynode_tpu_torch import SolverParams, simulate_ensemble
+    from dynode_tpu_torch.ode import integrate
+
+    integrate.clear_solve_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(cuda)
+    params, y0, _ = _inputs(cuda, batch=B)
+    for days in (50, 60):
+        for k in range(2):
+            scales = torch.full((B,), 1.0 + 0.1 * k, device=cuda)
+            simulate_ensemble(model.multistrain_ode, days, y0, _batched(params, scales),
+                              SolverParams(constant_step_size=0.5), layout="lane_major")
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_reserved(cuda)
+    entries = list(integrate._SOLVE_CACHE.values())
+    assert len(entries) == 2 and all(e["graphs"] for e in entries)
+    integrate.clear_solve_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved(cuda)
+    print(f"reserved: {before} before, {kept} with 2 kept solves, {after} after clear_solve_cache")
+    assert all(e["graphs"] == {} and e["bufs"] is None for e in entries)
+    assert after < kept
+
+
+@pytest.mark.cuda
+def test_simulate_graph_rhs_that_reads_the_host_raises(cuda):
+    """A RHS that calls ``.item()`` runs eagerly on its key's first call;
+    the second call's capture raises ``GraphCaptureError`` naming the line,
+    and so does the third: it never runs eagerly in the graph's place."""
+    from dynode_tpu_torch.infer.graphs import GraphCaptureError
+    from dynode_tpu_torch.ode import SaveAt, Tsit5, diffeqsolve, integrate
+
+    def reads_the_host(t, y, p):
+        s, i, r = y
+        flow = p[0].item() * s * i
+        return (-flow, flow - p[1] * i, p[1] * i)
+
+    integrate.clear_solve_cache()
+    y0 = tuple(torch.tensor([v], dtype=torch.float64, device=cuda) for v in (0.99, 0.01, 0.0))
+    p = torch.tensor([0.3, 0.1], dtype=torch.float64, device=cuda)
+
+    def call():
+        return diffeqsolve(reads_the_host, Tsit5(), 0.0, 10.0, 0.5, y0, p, saveat=SaveAt(ts=np.linspace(0, 10, 11)))
+
+    assert int(call().result) == 0
+    for _ in range(2):
+        with pytest.raises(GraphCaptureError, match=r"test_torch_cuda\.py:\d+ \(flow = p\[0\]\.item\(\)"):
+            call()
+        assert len(integrate._SOLVE_CACHE) == 0
+    integrate.clear_solve_cache()
